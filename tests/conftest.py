@@ -28,3 +28,11 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the hand-written CUDA kernels of "
+        "intmax_zkp_core_tpu_torch); skipped where there is no CUDA device",
+    )
