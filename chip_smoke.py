@@ -13,12 +13,16 @@ JSON line describing every kernel, and a last JSON line ``{"ok": true, ...}``.
 Any failed phase raises and the script exits non-zero; without a CUDA device
 it exits 1 at once.
 
+Six kernels are built and held: the Poseidon permutation and sponge, and the
+four of the permutation argument (permutation columns, permutation terms of
+the quotient, the divide by Z_H, the initial FRI quotient).
+
 In the kernels line ``max_abs_err`` is the largest absolute difference
 between a kernel's output and its plain version's, taken on the int64 bit
 patterns in float64 over every shape compared; the script fails unless it
-is 0.  ``bound_ms`` counts the multiply-adds of the cheapest known way to
-compute the permutation, ``bound_ms_as_computed`` those of the kernels' own
-algorithm.
+is 0.  ``bound_ms`` counts the bytes the function must move and the
+multiply-adds of the cheapest known way to compute it,
+``bound_ms_as_computed`` the multiply-adds of the kernels' own algorithm.
 """
 
 from __future__ import annotations
@@ -112,12 +116,14 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
-    """Mean milliseconds of ``fn()`` on the card over ``reps`` runs (CUDA
+    """Median milliseconds of ``fn()`` on the card over ``reps`` runs (CUDA
     events; one warm-up; the L2 cache is overwritten between runs when a
-    flush buffer is given)."""
+    flush buffer is given).  The events bracket the whole call, so a wrapper's
+    host work counts where the card waits for it; the median keeps one stalled
+    call out of the time of a kernel of some tens of microseconds."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
@@ -127,21 +133,80 @@ def time_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
         fn()
         end.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
-def bound_ms(rows: int, width_in: int, width_out: int, perms_per_row: int) -> dict:
-    """The least time the card could take: the larger of bytes over the
-    memory rate and needed multiply-adds over the integer rate."""
-    bytes_ms = rows * (width_in + width_out) * 8 / HBM_BYTES_PER_S * 1e3
-    per_mad_ms = rows * perms_per_row / INT32_MAD_PER_S * 1e3
-    ops_ms = per_mad_ms * MADS_PER_PERMUTATION
+def bound(n_bytes: float, mads: float, mads_as_computed: float) -> dict:
+    """The least time the card could take: the larger of the bytes that must
+    move (each input read once, each output written once) over the memory
+    rate and the needed 32-bit multiply-adds over the integer rate."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = mads / INT32_MAD_PER_S * 1e3
     return {
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ms_as_computed": max(per_mad_ms * MADS_AS_COMPUTED, bytes_ms),
+        "bound_ms_as_computed": max(mads_as_computed / INT32_MAD_PER_S * 1e3, bytes_ms),
     }
+
+
+def bound_ms(rows: int, width_in: int, width_out: int, perms_per_row: int) -> dict:
+    """The bound of a Poseidon kernel over ``rows`` rows."""
+    perms = rows * perms_per_row
+    return bound(rows * (width_in + width_out) * 8, perms * MADS_PER_PERMUTATION,
+                 perms * MADS_AS_COMPUTED)
+
+
+# A field multiply counts as 4 multiply-adds (the partial products of a
+# 64x64 product) and a squaring as 3.  An inverse, as the kernels compute it
+# (one Fermat chain per point: 64 squarings and 10 multiplies), counts 232; by
+# the cheapest formulation known (one chain per batch of points and three
+# multiplies per further point - Montgomery's batch inversion) it counts 12.
+MUL, SQR = 4, 3
+INV_AS_COMPUTED = 64 * SQR + 10 * MUL
+INV_BATCHED = 3 * MUL
+
+
+def perm_columns_bound(K: int, C: int, R: int, n: int) -> dict:
+    """K3 stage 1: wires, id and sigma tables read once (not once per
+    challenge), f_pref, g_pref_inv and row_quot written once."""
+    nch = (R + 6) // 7
+    n_bytes = (K * R + 2 * R) * n * 8 + K * C * 2 * nch * n * 8 + 2 * K * C * 8
+    # two factor multiplies per wire, chunk products, prefix and suffix
+    # products, the row quotient and the scaling of the nch-1 suffixes
+    muls = 2 * R + 2 * (R - nch) + 2 * (nch - 1) + 1 + (nch - 1)
+    points = K * C * n
+    return bound(n_bytes, points * (muls * MUL + INV_BATCHED),
+                 points * ((muls + 2 * (7 * nch - R)) * MUL + INV_AS_COMPUTED))
+
+
+def perm_quotient_bound(K: int, C: int, R: int, L: int) -> dict:
+    """K5: the first R wire rows, sigma, xs and l0 read once; Z, the partial
+    products read and acc written once per (proof, challenge)."""
+    nch = (R + 6) // 7
+    n_bytes = (K * R + R + 2) * L * 8 + K * C * (nch + 1) * L * 8 + (4 * K * C + R) * 8
+    # two factor multiplies per wire, chunk products, two products and one
+    # alpha multiply per chunk, and the L_0 term with its alpha multiply
+    muls = 2 * R + 2 * (R - nch) + 3 * nch + 2
+    mads = K * C * L * muls * MUL
+    return bound(n_bytes, mads, mads)
+
+
+def zinv_mul_bound(rows: int, L: int, distinct: int) -> dict:
+    """K6: acc read, out written, z_h read; ``distinct`` values of z_h need an
+    inverse (on the prover's coset Z_H takes only ``blowup`` values)."""
+    n_bytes = (2 * rows + 1) * L * 8
+    return bound(n_bytes, distinct * INV_AS_COMPUTED + rows * L * MUL,
+                 L * INV_AS_COMPUTED + rows * L * MUL)
+
+
+def fri_initial_bound(K: int, L: int) -> dict:
+    """K7: comb1, comb2 read and G written as pairs, xs read."""
+    n_bytes = K * L * 3 * 16 + L * 8 + K * 8 * 8
+    # per term: the square of the norm, two multiplies for the inverse's
+    # components, four for the extension product and one by the small constant 7
+    term = SQR + 2 * MUL + 4 * MUL + 2
+    return bound(n_bytes, K * L * 2 * (term + INV_BATCHED), K * L * 2 * (term + INV_AS_COMPUTED))
 
 
 def proof_sha256(proof) -> str:
@@ -162,6 +227,14 @@ def expect_rejected(circuit, proof) -> None:
     except AssertionError:
         return
     raise RuntimeError("a tampered proof was accepted")
+
+
+def expect_once_per_proof(before: dict, after: dict, what: str) -> None:
+    """One proof launches each kernel of the permutation argument once."""
+    for name in NEW_KERNELS:
+        if after[name] - before[name] != 1:
+            raise RuntimeError(
+                f"the {what} proof launched {name} {after[name] - before[name]} times, not once")
 
 
 def phase_kernels(device, rng):
@@ -250,6 +323,145 @@ def phase_timings(device, rng):
     return out
 
 
+NEW_KERNELS = ("perm_columns_cuda", "perm_quotient_cuda", "zinv_mul_cuda", "fri_initial_cuda")
+
+
+def perm_columns_inputs(rng, device, K, C, R, n, extra_rows=0):
+    return [rand_field(rng, (K, R + extra_rows, n), device), rand_field(rng, (K, C), device),
+            rand_field(rng, (K, C), device), rand_field(rng, (R, n), device),
+            rand_field(rng, (R, n), device)]
+
+
+def perm_quotient_inputs(rng, device, K, C, R, L, extra_rows=0):
+    nch = (R + 6) // 7
+    return [rand_field(rng, (K, R + extra_rows, L), device), rand_field(rng, (K, C, L), device),
+            rand_field(rng, (K, C, nch - 1, L), device), rand_field(rng, (K, C), device),
+            rand_field(rng, (K, C), device), rand_field(rng, (K, C), device),
+            rand_field(rng, (R, L), device), rand_field(rng, (L,), device),
+            rand_field(rng, (L,), device), rand_field(rng, (R,), device)]
+
+
+def fri_initial_inputs(rng, device, K, L):
+    return [rand_field(rng, (K, L, 2), device), rand_field(rng, (K, L, 2), device),
+            rand_field(rng, (L,), device)] + [rand_field(rng, (K, 2), device) for _ in range(4)]
+
+
+def phase_perm_kernels(device, rng, log_rows):
+    """The four kernels of the permutation argument against their plain
+    versions on the card, from 8 points up to the main path's sizes, at a
+    size that no block size divides, and over a leading axis of 1 and 3."""
+    from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
+    from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
+    from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
+    from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
+    from intmax_zkp_core_tpu_torch.ops import zinv_mul_cuda as zm
+
+    n_main, L_main, odd, blowup, C = 1 << log_rows, 1 << (log_rows + 3), (1 << 12) + 8, 8, 2
+    worst = dict.fromkeys(NEW_KERNELS, 0)
+    err = dict.fromkeys(NEW_KERNELS, 0.0)
+
+    def hold(kernel, got, want, **fields):
+        bad = sum(mismatches(g, w) for g, w in zip(got, want))
+        worst[kernel] = max(worst[kernel], bad)
+        err[kernel] = max([err[kernel]] + [max_abs_err(g, w) for g, w in zip(got, want) if g.numel()])
+        log("kernels", kernel=kernel, **fields, mismatches=bad)
+
+    # gl_inv of the device header through the smallest kernel: 0, 1, p-1 and
+    # random lanes against the plain square-and-multiply and exact integers
+    z_h = rand_field(rng, (odd,), device)
+    z_h[:3] = gl.from_u64(np.array([0, 1, P - 1], dtype=np.uint64), device)
+    got = zm.zinv_mul_cuda(torch.ones_like(z_h), z_h)
+    hold("zinv_mul_cuda", [got], [gl.inv(z_h)], plain="ops.goldilocks.inv", L=odd)
+    for x, y in zip(gl.to_u64(z_h[:64]), gl.to_u64(got[:64])):
+        if int(y) != pow(int(x), P - 2, P):
+            raise RuntimeError(f"gl_inv({int(x)}) = {int(y)} on the card")
+    log("kernels", kernel="zinv_mul_cuda", against="pow(x, p-2, p)", lanes=64, ok=True,
+        inv_of_0_1_pm1=[int(v) for v in gl.to_u64(got[:3])])
+
+    for L in (8, odd, L_main):
+        for lead in ((), (1,), (4,)):
+            acc, z_h = rand_field(rng, lead + (L,), device), rand_field(rng, (L,), device)
+            hold("zinv_mul_cuda", [zm.zinv_mul_cuda(acc, z_h)], [zm.zinv_mul_plain(acc, z_h)],
+                 plain="zinv_mul_plain", rows=list(lead), L=L)
+        for K in (1, 3):
+            args = fri_initial_inputs(rng, device, K, L)
+            hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
+                 plain="fri_initial_plain", K=K, L=L)
+
+    # K3 at every size; K5 at every R up to the odd size and, at the main
+    # path's L, at the main path's R only (its plain version takes seconds
+    # there).  K5 itself takes any L: the shift by `blowup` wraps modulo L.
+    for n in (8, odd, n_main):
+        for R in (3, 7, 8, 23, 80):
+            for K in (1, 3):
+                args = perm_columns_inputs(rng, device, K, C, R, n, extra_rows=K - 1)
+                hold("perm_columns_cuda", pcol.stage1_cuda(*args) + pcol.perm_columns_cuda(*args),
+                     pcol.stage1_plain(*args) + pcol.perm_columns_plain(*args),
+                     plain="stage1_plain+perm_columns_plain", K=K, R=R, n=n)
+    for L, Rs in ((8, (3, 7, 8, 23, 80)), (odd, (3, 7, 8, 23, 80)), (L_main, (80,))):
+        for R in Rs:
+            for K in (1, 3):
+                # at the main path's shape the wire matrix carries all 135 rows
+                extra = 55 if (L == L_main and K == 1) else K - 1
+                args = perm_quotient_inputs(rng, device, K, C, R, L, extra_rows=extra)
+                hold("perm_quotient_cuda", pq.perm_quotient_cuda(*args, blowup),
+                     pq.perm_quotient_plain(*args, blowup),
+                     plain="perm_quotient_plain", K=K, R=R, L=L, wire_rows=R + extra)
+                del args
+    torch.cuda.synchronize()
+    if any(worst.values()) or any(err.values()):
+        raise RuntimeError(f"kernel disagrees with its plain version: {worst} {err}")
+    return err
+
+
+def phase_perm_timings(device, rng, log_rows):
+    """Each kernel of the permutation argument at the shape a proof of
+    2^log_rows rows gives it, beside its plain version's time and its bound."""
+    from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
+    from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
+    from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
+    from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
+    from intmax_zkp_core_tpu_torch.ops import zinv_mul_cuda as zm
+
+    n, L, R, C, blowup = 1 << log_rows, 1 << (log_rows + 3), 80, 2, 8
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=device)  # 512 MB
+    out = {}
+
+    def record(name, shape, kernel, plain, bound_fields):
+        out[name] = {"shape": shape, "ms": time_ms(kernel, 10, flush),
+                     "plain_ms": time_ms(plain, 2, flush), **bound_fields}
+        log("timing", kernel=name, **out[name])
+
+    args = perm_columns_inputs(rng, device, 1, C, R, n)
+    record("perm_columns_cuda", [1, R, n], lambda: pcol.stage1_cuda(*args),
+           lambda: pcol.stage1_plain(*args), perm_columns_bound(1, C, R, n))
+    # the whole function, plain tail included, beside the kernel stage alone
+    out["perm_columns_cuda"]["with_tail_ms"] = time_ms(lambda: pcol.perm_columns_cuda(*args), 5, flush)
+    out["perm_columns_cuda"]["plain_with_tail_ms"] = time_ms(
+        lambda: pcol.perm_columns_plain(*args), 2, flush)
+    log("timing", kernel="perm_columns_cuda", tail="running product, Z, pp (plain PyTorch)",
+        with_tail_ms=out["perm_columns_cuda"]["with_tail_ms"],
+        plain_with_tail_ms=out["perm_columns_cuda"]["plain_with_tail_ms"])
+
+    args = perm_quotient_inputs(rng, device, 1, C, R, L, extra_rows=55)  # all 135 wire rows
+    record("perm_quotient_cuda", [1, C, L], lambda: pq.perm_quotient_cuda(*args, blowup),
+           lambda: pq.perm_quotient_plain(*args, blowup), perm_quotient_bound(1, C, R, L))
+    del args
+
+    # Z_H as the prover has it: `blowup` distinct values, repeated along the coset
+    acc = rand_field(rng, (C, L), device)
+    z_h = gl.sub(rand_field(rng, (blowup,), device), 1).repeat(L // blowup)
+    distinct = int(torch.unique(z_h).numel())
+    record("zinv_mul_cuda", [C, L], lambda: zm.zinv_mul_cuda(acc, z_h),
+           lambda: zm.zinv_mul_plain(acc, z_h), zinv_mul_bound(C, L, distinct))
+
+    args = fri_initial_inputs(rng, device, 1, L)
+    record("fri_initial_cuda", [1, L, 2], lambda: fi.fri_initial_cuda(*args),
+           lambda: fi.fri_initial_plain(*args), fri_initial_bound(1, L))
+    del flush
+    return out
+
+
 def phase_zkdsa(device, golden_path):
     from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig
     from intmax_zkp_core_tpu_torch.models.zkdsa import make_simple_signature_circuit
@@ -268,6 +480,7 @@ def phase_zkdsa(device, golden_path):
     c2 = pc.launch_counts()
     if c2["permute_cuda"] - c1["permute_cuda"] <= 0:
         raise RuntimeError("the zkDSA proof launched no permute_cuda kernel")
+    expect_once_per_proof(c1, c2, "zkDSA")
     circuit.verify(proof)
     t3 = time.perf_counter()
     expect_rejected(circuit, proof)
@@ -280,7 +493,17 @@ def phase_zkdsa(device, golden_path):
         prove_s=round(t2 - t1, 3), verify_s=round(t3 - t2, 3), tampered="rejected",
         sha256=digest, golden="equal",
         permute_cuda_launches_build=c1["permute_cuda"] - c0["permute_cuda"],
-        permute_cuda_launches_prove=c2["permute_cuda"] - c1["permute_cuda"])
+        launches_prove={k: c2[k] - c1[k] for k in c2 if c2[k] - c1[k]})
+
+
+def expect_parts_add_up(timings: dict) -> None:
+    """``quotient`` and ``fri`` come split into parts that sum to the phase."""
+    for phase, parts in (
+        ("quotient", ("quotient_perm", "quotient_gates", "quotient_finish", "quotient_commit")),
+        ("fri", ("fri_combine", "fri_initial", "fri_fold", "fri_grind", "fri_queries")),
+    ):
+        if abs(sum(timings[p] for p in parts) - timings[phase]) > 1e-6:
+            raise RuntimeError(f"the parts of {phase} do not add up: {timings}")
 
 
 def phase_chain(device, log_rows):
@@ -320,7 +543,9 @@ def phase_chain(device, log_rows):
         permute_cuda_launches_build=after_build["permute_cuda"] - c0["permute_cuda"],
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     log("chain-phases", **{k: round(v, 4) for k, v in timings.items()})
+    expect_parts_add_up(timings)
     after_chained = pc.launch_counts()
+    expect_once_per_proof(after_build, after_chained, "chain (chained wiring)")
 
     # the same proof through the fused-sponge wiring
     t0 = time.perf_counter()
@@ -328,6 +553,7 @@ def phase_chain(device, log_rows):
     proof_fused = circuit.prove(seed, salt, fused_sponge=True, timings=fused_timings)
     t1 = time.perf_counter()
     after_fused = pc.launch_counts()
+    expect_once_per_proof(after_chained, after_fused, "chain (fused wiring)")
     log("chain-launches-per-proof",
         chained_wiring={k: after_chained[k] - after_build[k] for k in after_build},
         fused_wiring={k: after_fused[k] - after_chained[k] for k in after_build})
@@ -345,26 +571,40 @@ def phase_chain_plain(circuit, seed, salt, proof):
     """The chain once more with the plain versions on the card: the proof
     must equal the kernel path's, and no kernel may be launched.
 
-    The port has no switch that sends a tensor on the card to the plain
-    version, so for this one comparison the permutation wrapper is replaced
-    by its plain version here and put back afterwards."""
+    The port has no switch that sends a tensor on the card to a plain
+    version, so for this one comparison every kernel wrapper is replaced by
+    its plain version here and put back afterwards."""
+    from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
+    from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
+    from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
     from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+    from intmax_zkp_core_tpu_torch.ops import zinv_mul_cuda as zm
 
+    swaps = (
+        (pc, "permute_cuda", pc.permute_plain),
+        (pc, "hash_no_pad_cuda", pc.hash_no_pad_plain),
+        (pcol, "perm_columns_cuda", pcol.perm_columns_plain),
+        (pq, "perm_quotient_cuda", pq.perm_quotient_plain),
+        (zm, "zinv_mul_cuda", zm.zinv_mul_plain),
+        (fi, "fri_initial_cuda", fi.fri_initial_plain),
+    )
     before = pc.launch_counts()
     t0 = time.perf_counter()
     timings = {}
-    kernel_wrapper = pc.permute_cuda
-    pc.permute_cuda = pc.permute_plain
+    wrappers = [(module, name, getattr(module, name)) for module, name, _ in swaps]
     try:
+        for module, name, plain in swaps:
+            setattr(module, name, plain)
         proof_plain = circuit.prove(seed, salt, timings=timings)
     finally:
-        pc.permute_cuda = kernel_wrapper
+        for module, name, wrapper in wrappers:
+            setattr(module, name, wrapper)
     t1 = time.perf_counter()
     if pc.launch_counts() != before:
         raise RuntimeError("the plain-path proof launched a kernel")
     if proof_sha256(proof_plain) != proof_sha256(proof):
         raise RuntimeError("kernel-path and plain-path proofs differ")
-    log("chain-plain", prove_s=round(t1 - t0, 3), proof="equal",
+    log("chain-plain", prove_s=round(t1 - t0, 3), proof="equal", kernels_launched=0,
         **{k: round(v, 4) for k, v in timings.items()})
 
 
@@ -385,6 +625,7 @@ def main() -> int:
     device = torch.device("cuda")
     # the port itself: fails here, before anything is printed, where the
     # script stands alone without the package
+    from intmax_zkp_core_tpu_torch.ops import cuda_build as cb
     from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
 
     card = nvidia_smi_line()
@@ -394,15 +635,17 @@ def main() -> int:
     print(card, flush=True)
 
     # ---- 2. build ----
-    build_seconds = pc.build(verbose=args.ptxas)
-    pc.load()
-    log("build", source=os.path.relpath(pc.SOURCE), nvcc_flags="'" + " ".join(pc.NVCC_FLAGS) + "'",
-        seconds=round(build_seconds, 2))
+    build_seconds = cb.build(verbose=args.ptxas)
+    cb.load()
+    log("build", sources=[os.path.basename(src) for src in cb.sources()],
+        nvcc_flags="'" + " ".join(cb.NVCC_FLAGS) + "'", seconds=round(build_seconds, 2))
 
     # ---- 3. kernels against their plain versions ----
     rng = np.random.default_rng(20240917)
     err = phase_kernels(device, rng)
+    err.update(phase_perm_kernels(device, rng, args.log_rows))
     timing = phase_timings(device, rng)
+    timing.update(phase_perm_timings(device, rng, args.log_rows))
 
     # ---- 4./5. the main path, launch counts read around it ----
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -411,23 +654,32 @@ def main() -> int:
     phase_zkdsa(device, golden)
     chain = phase_chain(device, args.log_rows)
     main_counts = pc.launch_counts()  # read just after the main path
+    if len(main_counts) != 6:
+        raise RuntimeError(f"expected the counts of six kernels, got {main_counts}")
     for name, count in main_counts.items():
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
     phase_chain_plain(*chain)  # comparison only: after the counts were read
 
     # ---- 6. the record ----
-    src = "intmax_zkp_core_tpu_torch/csrc/poseidon.cu"
-    tp, th = timing["permute_cuda"], timing["hash_no_pad_cuda_w135"]
-    kernels = [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": f"intmax_zkp_core_tpu/ops/poseidon_pallas.py:{line}",
-         "launches": main_counts[name], "max_abs_err": err[name],
-         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-         "bound_by": t["bound_by"], "library_ms": None,
-         "bound_ms_as_computed": t["bound_ms_as_computed"], "shape": t["shape"]}
-        for name, line, t in (("permute_cuda", 358, tp), ("hash_no_pad_cuda", 291, th))
-    ]
+    csrc, ref = "intmax_zkp_core_tpu_torch/csrc/", "intmax_zkp_core_tpu/ops/"
+    table = (
+        ("permute_cuda", "poseidon.cu", "poseidon_pallas.py:358", "permute_cuda"),
+        ("hash_no_pad_cuda", "poseidon.cu", "poseidon_pallas.py:291", "hash_no_pad_cuda_w135"),
+        ("perm_columns_cuda", "perm_columns.cu", "perm_columns_pallas.py:198", "perm_columns_cuda"),
+        ("perm_quotient_cuda", "perm_quotient.cu", "perm_quotient_pallas.py:193", "perm_quotient_cuda"),
+        ("zinv_mul_cuda", "zinv_mul.cu", "zinv_mul_pallas.py:90", "zinv_mul_cuda"),
+        ("fri_initial_cuda", "fri_init.cu", "fri_init_pallas.py:159", "fri_initial_cuda"),
+    )
+    kernels = []
+    for name, source, replaces, timed in table:
+        t = timing[timed]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": csrc + source, "replaces": ref + replaces,
+             "launches": main_counts[name], "max_abs_err": err[name],
+             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": None,
+             "bound_ms_as_computed": t["bound_ms_as_computed"], "shape": t["shape"]})
     log("done", seconds=round(time.perf_counter() - t_start, 1), log_rows=args.log_rows)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,7 +20,8 @@
 // by formula, so results are bit-identical for every u64 input.
 //
 // Plain C interface, loaded with ctypes: each launcher returns
-// cudaGetLastError() so that the Python wrapper can raise.
+// cudaGetLastError() so that the Python wrapper can raise (runtime.cu turns
+// the code into text).
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -165,7 +166,5 @@ int poseidon_hash_no_pad(const void* in, long long row_stride, long long col_str
         (const u64*)in, row_stride, col_stride, width, (u64*)out, B);
     return (int)cudaGetLastError();
 }
-
-const char* poseidon_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

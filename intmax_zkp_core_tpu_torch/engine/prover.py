@@ -3,9 +3,14 @@ argument -> quotient -> FRI opening proof.
 
 This is the counterpart of ``CircuitData::prove``.  All polynomial work is
 batched tensor code on the device; host code only orchestrates and runs the
-Fiat-Shamir transcript.  Every Merkle commitment hashes through the Poseidon
-CUDA kernels (``ops/poseidon_cuda.py``) when the circuit lives on the card;
-everything else is plain PyTorch on int64 bit patterns.
+Fiat-Shamir transcript.  When the circuit lives on the card, every Merkle
+commitment hashes through the Poseidon CUDA kernels (``ops/poseidon_cuda.py``)
+and the permutation argument runs through four more: the permutation columns
+(``ops/perm_columns_cuda.py``), the permutation terms of the quotient
+(``ops/perm_quotient_cuda.py``), the divide by Z_H (``ops/zinv_mul_cuda.py``)
+and the initial FRI quotient (``ops/fri_init_cuda.py``).  Each wrapper is
+reached through its module and picks kernel or plain version by where its
+tensors lie.  Everything else is plain PyTorch on int64 bit patterns.
 
 The proof is bit-identical to the JAX package's for the same circuit and
 witness: the arithmetic is exact mod p and the transcript deterministic.
@@ -19,10 +24,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import fri_init_cuda as fi
 from ..ops import goldilocks as gl
 from ..ops import merkle as mk
 from ..ops import ntt as nt
+from ..ops import perm_columns_cuda as pcol
+from ..ops import perm_quotient_cuda as pq
 from ..ops import poseidon as ps
+from ..ops import zinv_mul_cuda as zm
+from ..ops.perm_quotient_cuda import CHUNK, n_chunks  # noqa: F401  (the verifier reads them here)
 from .algebra import BatchAlgebra, ext_add, ext_mul
 from .challenger import Challenger
 from .circuit import CircuitData
@@ -32,18 +42,10 @@ from .witness import PartialWitness, WitnessFill
 
 P = gl.P_INT
 
-# permutation-argument chunking: 7 wires per partial product keeps the
-# constraint degree at 8 (= CircuitConfig.max_degree)
-CHUNK = 7
-
 # rows of an LDE matrix combined per step of ``_combine_columns``: bounds the
 # temporaries of the weighted sum (a [275, 2^18] matrix taken whole needs
 # gigabytes of them)
 COMBINE_ROW_BLOCK = 64
-
-
-def n_chunks(num_routed: int) -> int:
-    return (num_routed + CHUNK - 1) // CHUNK
 
 
 def _u64_tensor(values, device) -> torch.Tensor:
@@ -145,17 +147,6 @@ def _combine_columns(lde_matrix: torch.Tensor, pows_arr: torch.Tensor) -> torch.
     return torch.stack([acc0, acc1], dim=-1)  # [lde_n, 2]
 
 
-def _cumprod(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive running product mod p along the last axis, as a log-step
-    scan (exact arithmetic makes the association order irrelevant)."""
-    n = x.shape[-1]
-    d = 1
-    while d < n:
-        x = torch.cat([x[..., :d], gl.mul(x[..., d:], x[..., :-d])], dim=-1)
-        d *= 2
-    return x
-
-
 def _commit(matrix, rate_bits: int, cap_height: int, from_coeffs: bool = False,
             fused_sponge: bool = False):
     """columns [S, n] (evaluations on the subgroup, or coefficients if
@@ -226,7 +217,8 @@ def get_circuit_kernels(pd, device):
     """Per-circuit device tables and the functions over them (permutation
     columns, quotient), in a digest-keyed module cache.  Circuit constants
     are uploaded once; challenges are arguments, so every proof of the same
-    circuit reuses the tables."""
+    circuit reuses the tables.  The functions reach the kernel wrappers
+    through their modules at call time."""
     device = torch.device(device)
     common = pd.common
     cache_key = (
@@ -246,8 +238,6 @@ def get_circuit_kernels(pd, device):
     n = common.n
     blowup = cfg.fri.blowup
     lde_n = n * blowup
-    R = cfg.num_routed_wires
-    nch = n_chunks(R)
     C = cfg.num_challenges
 
     n_sel = common.n_sel
@@ -279,100 +269,28 @@ def get_circuit_kernels(pd, device):
     def perm_columns(wires, betas, gammas):
         """wires [R, n]; betas/gammas [C] -> (z_cols [C, n], pp [C, nch-1, n],
         wrap [C] which must be all-ones)."""
-
-        def per_challenge(beta, gamma):
-            f_fac = gl.add(gl.add(wires[:R], gl.mul(beta, id_vals_c)), gamma)  # [R, n]
-            g_fac = gl.add(gl.add(wires[:R], gl.mul(beta, sigma_c)), gamma)
-            pad = nch * CHUNK - R
-            if pad:
-                ones = torch.ones((pad, n), dtype=torch.int64, device=wires.device)
-                f_fac = torch.cat([f_fac, ones], dim=0)
-                g_fac = torch.cat([g_fac, ones], dim=0)
-            f_fac = f_fac.reshape(nch, CHUNK, n)
-            g_fac = g_fac.reshape(nch, CHUNK, n)
-
-            def chunk_prod(m):
-                out = m[:, 0]
-                for k in range(1, CHUNK):
-                    out = gl.mul(out, m[:, k])
-                return out  # [nch, n]
-
-            f_ch = chunk_prod(f_fac)
-            g_ch = chunk_prod(g_fac)
-            # prefix products of f chunks; SUFFIX products of g chunks:
-            # inv(G_pref[j]) = G_suff[j+1] * inv(G_total), so only the
-            # single [n] total column needs the Fermat inversion
-            f_pref = [f_ch[0]]
-            for j in range(1, nch):
-                f_pref.append(gl.mul(f_pref[-1], f_ch[j]))
-            f_pref = torch.stack(f_pref)  # [nch, n]
-            g_suff = [g_ch[nch - 1]]
-            for j in range(nch - 2, -1, -1):
-                g_suff.append(gl.mul(g_suff[-1], g_ch[j]))
-            g_suff.reverse()
-            g_total_inv = gl.inv(g_suff[0])  # [n]
-            row_quot = gl.mul(f_pref[-1], g_total_inv)  # [n]
-            cum = _cumprod(row_quot)  # [n]
-            z = torch.cat([torch.ones(1, dtype=torch.int64, device=cum.device), cum[:-1]])
-            if nch > 1:
-                g_pref_inv = gl.mul(torch.stack(g_suff[1:]), g_total_inv)  # [nch-1, n]
-                pp = gl.mul(z, gl.mul(f_pref[:-1], g_pref_inv))  # [nch-1, n]
-            else:
-                # R <= CHUNK: no partial products
-                pp = torch.zeros((0, n), dtype=torch.int64, device=cum.device)
-            return z, pp, cum[-1]
-
-        outs = [per_challenge(betas[c], gammas[c]) for c in range(C)]
-        zs, pps, wraps = (torch.stack([o[i] for o in outs]) for i in range(3))
-        return zs, pps, wraps
+        z, pp, wrap = pcol.perm_columns_cuda(
+            wires[None], betas[None], gammas[None], id_vals_c, sigma_c
+        )
+        return z[0], pp[0], wrap[0]
 
     # The alpha-power ordering [L_0 term, permutation chunks, every gate's
     # constraints in gate order] is identical to the verifier's.
 
-    def perm_quotient_part(wires_lde, zs_lde, pps_lde, betas, gammas, alphas):
+    def quotient_perm(wires_lde, zs_lde, pps_lde, betas, gammas, alphas):
         """-> (acc [C, lde_n], apows [C]): the L_0 + permutation-chunk terms
         alpha-combined, and the alpha power reached per challenge."""
-        accs = []
-        apows = []
-        for c in range(C):
-            beta, gamma, alpha = betas[c], gammas[c], alphas[c]
-            Z = zs_lde[c]
-            Z_shift = torch.roll(Z, -blowup)
-            terms = [gl.mul(l0_c, gl.sub(Z, 1))]
-            prev = Z
-            for j in range(nch):
-                lo, hi = j * CHUNK, min((j + 1) * CHUNK, R)
-                f = None
-                g_ = None
-                for i in range(lo, hi):
-                    v = wires_lde[i]
-                    fid = gl.add(gl.add(v, gl.mul(gl.mul(beta, k_is_c[i]), xs_c)), gamma)
-                    gs = gl.add(gl.add(v, gl.mul(beta, sigma_lde_c[i])), gamma)
-                    f = fid if f is None else gl.mul(f, fid)
-                    g_ = gs if g_ is None else gl.mul(g_, gs)
-                nxt = Z_shift if j == nch - 1 else pps_lde[c][j]
-                terms.append(gl.sub(gl.mul(nxt, g_), gl.mul(prev, f)))
-                if j < nch - 1:
-                    prev = pps_lde[c][j]
-            acc = torch.zeros(lde_n, dtype=torch.int64, device=device)
-            apow = torch.ones((), dtype=torch.int64, device=device)
-            for t in terms:
-                acc = gl.add(acc, gl.mul(apow, t))
-                apow = gl.mul(apow, alpha)
-            accs.append(acc)
-            apows.append(apow)
-        return torch.stack(accs), torch.stack(apows)
+        acc, apows = pq.perm_quotient_cuda(
+            wires_lde[None], zs_lde[None], pps_lde[None], betas[None], gammas[None],
+            alphas[None], sigma_lde_c, xs_c, l0_c, k_is_c, blowup,
+        )
+        return acc[0], apows[0]
 
     def quotient_finish(acc):
-        """acc [C, lde_n] -> quotient coefficient chunks [C*blowup, n]."""
-        z_h_inv = gl.inv(z_h_c)
-        out_chunks = []
-        for c in range(C):
-            q_evals = gl.mul(acc[c], z_h_inv)
-            coeffs = nt.intt(q_evals[None, :])[0]
-            coeffs = gl.mul(coeffs, shift_pows_c)
-            out_chunks.append(coeffs.reshape(blowup, n))
-        return torch.cat(out_chunks, dim=0)
+        """acc [C, lde_n] -> quotient coefficient chunks [C*blowup, n]: the
+        divide by Z_H, then iNTT and coset unshift."""
+        q_evals = zm.zinv_mul_cuda(acc, z_h_c)
+        return gl.mul(nt.intt(q_evals), shift_pows_c).reshape(C * blowup, n)
 
     sel_cols = [sel_lde[i] for i in range(n_sel)]
     gate_chunks = [
@@ -381,20 +299,23 @@ def get_circuit_kernels(pd, device):
         if GATE_TYPES[gate_id].num_constraints
     ]
 
-    def quotient(wires_lde, zs_lde, pps_lde, betas, gammas, alphas, pi_hash):
-        """wires_lde [W, lde_n]; zs_lde [C, lde_n]; pps_lde [C, nch-1, lde_n];
-        challenges [C]; pi_hash [4] -> quotient coefficient chunks
-        [C*blowup, n]."""
-        acc, apows = perm_quotient_part(wires_lde, zs_lde, pps_lde, betas, gammas, alphas)
+    def quotient_gates(wires_lde, pi_hash, alphas, acc, apows):
+        """acc [C, lde_n] plus every gate's selector-filtered constraints,
+        alpha-combined from the powers ``apows`` on."""
         for gi, fn in gate_chunks:
             acc, apows = fn(
                 wires_lde, sel_cols[gi], const_lde, pi_hash, alphas, acc, apows
             )
-        return quotient_finish(acc)
+        return acc
 
     kernels = {
         "perm_columns": perm_columns,
-        "quotient": quotient,
+        # the quotient in its three parts: wires_lde [W, lde_n], zs_lde
+        # [C, lde_n], pps_lde [C, nch-1, lde_n], challenges [C], pi_hash [4]
+        # -> quotient coefficient chunks [C*blowup, n]
+        "quotient_perm": quotient_perm,
+        "quotient_gates": quotient_gates,
+        "quotient_finish": quotient_finish,
         # device-resident per-circuit tables the rest of prove() reads
         "xs": xs_c,
         "cs_lde_dev": cs_lde_c,
@@ -470,26 +391,38 @@ def check_witness(circuit_data: CircuitData, pw: PartialWitness, device=None) ->
 
 
 class _PhaseTimer:
-    """Seconds per prover phase into a caller's dict.  With a dict given,
-    every boundary synchronizes the device so queued work is charged to the
-    phase that enqueued it; without one the timer does nothing."""
+    """Seconds per prover phase, and per part of a phase, into a caller's
+    dict.  With a dict given, every boundary synchronizes the device so queued
+    work is charged to the interval that enqueued it; without one the timer
+    does nothing.  An interval is charged to its phase and, when a part is
+    open, to the part too, so the parts of a phase add up to the phase."""
 
     def __init__(self, timings, device):
         self.timings = timings
         self.device = device
         self._t = None
-        self._name = None
+        self._names = ()
 
-    def phase(self, name) -> None:
+    def _stamp(self, *names) -> None:
         if self.timings is None:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        if self._name is not None:
-            self.timings[self._name] = self.timings.get(self._name, 0.0) + now - self._t
+        for name in self._names:
+            self.timings[name] = self.timings.get(name, 0.0) + now - self._t
         self._t = now
-        self._name = name
+        self._names = names
+
+    def phase(self, name, first_part=None) -> None:
+        """A new phase begins, with its first part if it has parts (and the
+        open phase, with its open part, ends)."""
+        self._stamp(*((name,) if first_part is None else (name, first_part)))
+
+    def sub(self, name) -> None:
+        """A new part of the open phase begins (and the open part ends)."""
+        if self.timings is not None:
+            self._stamp(self._names[0], name)
 
 
 def prove(
@@ -504,7 +437,12 @@ def prove(
 
     ``fused_sponge`` hashes every commitment through the one-launch sponge
     kernel instead of the chained permutation kernel; both give the same
-    proof.  ``timings``, when given, receives seconds per phase."""
+    proof.  ``timings``, when given, receives seconds per phase (``tables``,
+    ``witness``, ``commit_wires``, ``perm_columns``, ``quotient``, ``openings``,
+    ``fri``) and per part of the two largest device phases (``quotient_perm``,
+    ``quotient_gates``, ``quotient_finish``, ``quotient_commit``;
+    ``fri_combine``, ``fri_initial``, ``fri_fold``, ``fri_grind``,
+    ``fri_queries``), which add up to their phase."""
     pd = circuit_data.prover
     common = pd.common
     cfg = common.config
@@ -553,19 +491,21 @@ def prove(
     challenger.observe_cap(_cap_tuples(zs_pp_tree))
     alphas = challenger.get_n_challenges(C)
 
-    timer.phase("quotient")
+    timer.phase("quotient", "quotient_perm")
     # ---- 4. quotient ----
     zs_lde_arr = zspp_lde_dev[:C]
     pps_lde_arr = zspp_lde_dev[C:].reshape(C, nch - 1, lde_n)
-    quotient_matrix_dev = kernels["quotient"](
-        wire_lde_dev,
-        zs_lde_arr,
-        pps_lde_arr,
-        betas_arr,
-        gammas_arr,
-        _u64_tensor(alphas, device),
-        _u64_tensor(pi_hash, device),
+    alphas_arr = _u64_tensor(alphas, device)
+    acc, apows = kernels["quotient_perm"](
+        wire_lde_dev, zs_lde_arr, pps_lde_arr, betas_arr, gammas_arr, alphas_arr
     )
+    timer.sub("quotient_gates")
+    acc = kernels["quotient_gates"](
+        wire_lde_dev, _u64_tensor(pi_hash, device), alphas_arr, acc, apows
+    )
+    timer.sub("quotient_finish")
+    quotient_matrix_dev = kernels["quotient_finish"](acc)
+    timer.sub("quotient_commit")
     quot_coeffs_dev, quot_lde_dev, quotient_tree = _commit(
         quotient_matrix_dev, fri_cfg.rate_bits, fri_cfg.cap_height, from_coeffs=True, fused_sponge=fused_sponge
     )
@@ -602,7 +542,7 @@ def prove(
         for o in openings[name]:
             challenger.observe_ext(o)
 
-    timer.phase("fri")
+    timer.phase("fri", "fri_combine")
     # ---- 6. FRI ----
     alpha_fri = challenger.get_extension_challenge()
 
@@ -632,24 +572,21 @@ def prove(
     for j, y in enumerate(openings["zs_next"]):
         comb2_at_gzeta = ext_add(comb2_at_gzeta, ext_mul(alpha_pows[m1 + j], y))
 
+    timer.sub("fri_initial")
     # FRI initial quotient G(x) on the cached coset table
-    xs_ext = torch.stack([kernels["xs"], torch.zeros_like(kernels["xs"])], dim=-1)
+    scalars = _u64_tensor([zeta, gzeta, comb1_at_zeta, comb2_at_gzeta], device)  # [4, 2]
+    G = fi.fri_initial_cuda(
+        comb1[None], comb2[None], kernels["xs"],
+        scalars[0:1], scalars[1:2], scalars[2:3], scalars[3:4],
+    )[0]
 
-    def sub_const_ext(arr, cst):
-        out0 = gl.sub(arr[..., 0], gl.i64(cst[0]))
-        out1 = gl.sub(arr[..., 1], gl.i64(cst[1]))
-        return torch.stack([out0, out1], dim=-1)
-
-    denom1 = gl.ext_inv(sub_const_ext(xs_ext, zeta))
-    denom2 = gl.ext_inv(sub_const_ext(xs_ext, gzeta))
-    num1 = sub_const_ext(comb1, comb1_at_zeta)
-    num2 = sub_const_ext(comb2, comb2_at_gzeta)
-    G = gl.ext_add(gl.ext_mul(num1, denom1), gl.ext_mul(num2, denom2))
-
+    timer.sub("fri_fold")
     trees, final_poly, fri_betas = fold_layers(
         G, gl.MULTIPLICATIVE_GROUP_GENERATOR, fri_cfg, challenger, fused_sponge=fused_sponge
     )
+    timer.sub("fri_grind")
     pow_witness = grind_pow(challenger, fri_cfg.proof_of_work_bits, device, fused_sponge=fused_sponge)
+    timer.sub("fri_queries")
     indices, rounds = query_rounds(trees, fri_cfg, challenger, lde_n)
 
     # initial-tree openings per query: device trees gather only the touched

@@ -27,21 +27,30 @@ The plain PyTorch versions are ``permute`` and ``hash_no_pad`` of
 ``hash_no_pad_plain``).  A wrapper takes the plain version only for a tensor
 that lies on the CPU; for a CUDA tensor it launches its kernel or raises.
 
-Build: ``nvcc`` compiles ``csrc/poseidon.cu`` for ``sm_90a`` into a shared
+Build and loading: ``ops/cuda_build.py`` (``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``_build/`` at first use, loaded with
-``ctypes``.  A build failure is an exception.
+``ctypes``; a build failure is an exception).  Its names are re-exported here.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
+from . import cuda_build as cb
+from .cuda_build import (  # noqa: F401  (this module's public names since the first kernels)
+    BUILD_DIR,
+    CSRC_DIR,
+    LAUNCHES,
+    LIBRARY,
+    NVCC_FLAGS,
+    build,
+    find_nvcc,
+    launch_counts,
+    load,
+    reset_launch_counts,
+)
 from .poseidon import hash_n_to_m_no_pad as _hash_n_to_m_no_pad
 from .poseidon import permute as permute_plain
 from .poseidon_constants import (
@@ -51,32 +60,7 @@ from .poseidon_constants import (
     SPONGE_WIDTH,
 )
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCE = os.path.join(CSRC_DIR, "poseidon.cu")
-LIBRARY = os.path.join(BUILD_DIR, "libposeidon.so")
-
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
-
-# Launch counts: each wrapper adds one where it launches its kernel, and
-# nowhere else.
-LAUNCHES = {"permute_cuda": 0, "hash_no_pad_cuda": 0}
-
-_lib = None
 _constants_on: set = set()  # device indices whose __constant__ tables are filled
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
 
 
 def hash_no_pad_plain(inputs: torch.Tensor) -> torch.Tensor:
@@ -85,81 +69,7 @@ def hash_no_pad_plain(inputs: torch.Tensor) -> torch.Tensor:
     return _hash_n_to_m_no_pad(inputs, 4, permutation=permute_plain)
 
 
-def find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        for cand in (
-            os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-            "/usr/local/cuda/bin/nvcc",
-        ):
-            if os.path.isfile(cand):
-                nvcc = cand
-                break
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the Poseidon CUDA kernels cannot be built")
-    return nvcc
-
-
-def build(verbose: bool = False) -> float:
-    """Compile ``csrc/poseidon.cu`` into ``_build/libposeidon.so`` (always
-    recompiles; ``load`` calls it only when the library is missing or older
-    than its sources).  Returns nvcc's wall-clock seconds; raises on failure."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-I", CSRC_DIR, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-        )
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    os.replace(tmp, LIBRARY)
-    return seconds
-
-
-def _stale() -> bool:
-    if not os.path.isfile(LIBRARY):
-        return True
-    built = os.path.getmtime(LIBRARY)
-    return any(
-        os.path.getmtime(os.path.join(CSRC_DIR, f)) > built for f in os.listdir(CSRC_DIR)
-    )
-
-
-def load():
-    """The loaded library (built first if needed), with argtypes set."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    if _stale():
-        build()
-    lib = ctypes.CDLL(LIBRARY)
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.poseidon_set_constants.argtypes = [vp, vp, ctypes.c_ulonglong]
-    lib.poseidon_set_constants.restype = ci
-    lib.poseidon_permute.argtypes = [vp, vp, ll, vp]
-    lib.poseidon_permute.restype = ci
-    lib.poseidon_hash_no_pad.argtypes = [vp, ll, ll, ci, vp, ll, vp]
-    lib.poseidon_hash_no_pad.restype = ci
-    lib.poseidon_error_string.argtypes = [ci]
-    lib.poseidon_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
-
-
-def _check(lib, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.poseidon_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
-
-
-def _ready(device: torch.device):
+def _ready(device: torch.device) -> None:
     """Library loaded and its ``__constant__`` tables filled on ``device``."""
     lib = load()
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -172,9 +82,8 @@ def _ready(device: torch.device):
                 ctypes.cast(rc, ctypes.c_void_p), ctypes.cast(circ, ctypes.c_void_p),
                 MDS_MATRIX_DIAG[0],
             )
-        _check(lib, code, "poseidon_set_constants")
+        cb.check(code, "poseidon_set_constants")
         _constants_on.add(index)
-    return lib
 
 
 def permute_cuda(states: torch.Tensor) -> torch.Tensor:
@@ -194,12 +103,9 @@ def permute_cuda(states: torch.Tensor) -> torch.Tensor:
     rows = states.numel() // SPONGE_WIDTH
     if rows == 0:
         return out
-    lib = _ready(states.device)
-    with torch.cuda.device(states.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.poseidon_permute(states.data_ptr(), out.data_ptr(), rows, stream)
-    LAUNCHES["permute_cuda"] += 1
-    _check(lib, code, "poseidon_permute launch")
+    _ready(states.device)
+    cb.launch("permute_cuda", "poseidon_permute", states.device,
+              states.data_ptr(), out.data_ptr(), rows)
     return out
 
 
@@ -218,13 +124,8 @@ def hash_no_pad_cuda(inputs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((rows, 4), dtype=torch.int64, device=inputs.device)
     if rows == 0:
         return out
-    lib = _ready(inputs.device)
-    with torch.cuda.device(inputs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.poseidon_hash_no_pad(
-            inputs.data_ptr(), inputs.stride(0), inputs.stride(1), width,
-            out.data_ptr(), rows, stream,
-        )
-    LAUNCHES["hash_no_pad_cuda"] += 1
-    _check(lib, code, "poseidon_hash_no_pad launch")
+    _ready(inputs.device)
+    cb.launch("hash_no_pad_cuda", "poseidon_hash_no_pad", inputs.device,
+              inputs.data_ptr(), inputs.stride(0), inputs.stride(1), width,
+              out.data_ptr(), rows)
     return out

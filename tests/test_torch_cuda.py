@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
 from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
+from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
+from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
 from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+from intmax_zkp_core_tpu_torch.ops import zinv_mul_cuda as zm
 
 torch.set_num_threads(1)
 
@@ -58,3 +62,75 @@ def test_hash_no_pad_cuda_equals_plain(card, width):
 def test_cuda_tensor_never_takes_the_plain_path(card):
     with pytest.raises(ValueError):
         pc.permute_cuda(torch.zeros((12, 8), dtype=torch.int64, device=card).t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(), (4,)], ids=str)
+def test_zinv_mul_cuda_equals_plain(card, rows):
+    acc, z_h = _rand(1, rows + (4104,), card), _rand(2, (4104,), card)
+    z_h[:3] = torch.tensor([0, 1, -(1 << 32)], device=card)  # 0, 1, p-1
+    before = pc.launch_counts()["zinv_mul_cuda"]
+    got = zm.zinv_mul_cuda(acc, z_h)
+    assert pc.launch_counts()["zinv_mul_cuda"] == before + 1
+    assert torch.equal(got, zm.zinv_mul_plain(acc, z_h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+def test_fri_initial_cuda_equals_plain(card, K):
+    L = 4104
+    args = [_rand(3, (K, L, 2), card), _rand(4, (K, L, 2), card), _rand(5, (L,), card)]
+    args += [_rand(6 + i, (K, 2), card) for i in range(4)]
+    before = pc.launch_counts()["fri_initial_cuda"]
+    got = fi.fri_initial_cuda(*args)
+    assert pc.launch_counts()["fri_initial_cuda"] == before + 1
+    assert torch.equal(got, fi.fri_initial_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [3, 8, 80])
+def test_perm_quotient_cuda_equals_plain(card, R):
+    K, C, L, nch = 2, 2, 1032, pq.n_chunks(R)
+    args = [_rand(10, (K, R + 5, L), card), _rand(11, (K, C, L), card),
+            _rand(12, (K, C, nch - 1, L), card)]
+    args += [_rand(13 + i, (K, C), card) for i in range(3)]
+    args += [_rand(16, (R, L), card), _rand(17, (L,), card), _rand(18, (L,), card),
+             _rand(19, (R,), card)]
+    before = pc.launch_counts()["perm_quotient_cuda"]
+    acc, apows = pq.perm_quotient_cuda(*args, 8)
+    assert pc.launch_counts()["perm_quotient_cuda"] == before + 1
+    want_acc, want_apows = pq.perm_quotient_plain(*args, 8)
+    assert torch.equal(acc, want_acc) and torch.equal(apows, want_apows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [3, 8, 80])
+def test_perm_columns_cuda_equals_plain(card, R):
+    K, C, n = 2, 2, 1032
+    args = [_rand(20, (K, R + 5, n), card), _rand(21, (K, C), card), _rand(22, (K, C), card),
+            _rand(23, (R, n), card), _rand(24, (R, n), card)]
+    before = pc.launch_counts()["perm_columns_cuda"]
+    got = pcol.stage1_cuda(*args) + pcol.perm_columns_cuda(*args)
+    assert pc.launch_counts()["perm_columns_cuda"] == before + 2
+    want = pcol.stage1_plain(*args) + pcol.perm_columns_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_never_take_the_plain_path_for_a_cuda_tensor(card):
+    # an input the kernel cannot index raises; nothing falls back to the plain version
+    acc, z_h = _rand(1, (2, 64), card), _rand(2, (64,), card)
+    with pytest.raises(ValueError):
+        zm.zinv_mul_cuda(acc.t().contiguous().t(), z_h)
+    comb = _rand(3, (1, 64, 4), card)[:, :, :2]
+    scal = _rand(4, (1, 2), card)
+    with pytest.raises(ValueError):
+        fi.fri_initial_cuda(comb, comb, z_h, scal, scal, scal, scal)
+    wires = _rand(5, (1, 64, 7), card).transpose(1, 2)  # [1, 7, 64], last axis strided
+    tbl = _rand(6, (7, 64), card)
+    with pytest.raises(ValueError):
+        pcol.perm_columns_cuda(wires, scal, scal, tbl, tbl)
+    with pytest.raises(ValueError):
+        pq.perm_quotient_cuda(wires, _rand(7, (1, 2, 64), card), _rand(8, (1, 2, 0, 64), card),
+                              scal, scal, scal, tbl, z_h, z_h, _rand(9, (7,), card), 8)

@@ -37,6 +37,8 @@ def test_port_has_its_modules():
     have = {str(p.relative_to(PORT)) for p in FILES[:-1]}
     for want in (
         "ops/goldilocks.py", "ops/poseidon.py", "ops/poseidon_cuda.py", "ops/ntt.py",
+        "ops/cuda_build.py", "ops/perm_columns_cuda.py", "ops/perm_quotient_cuda.py",
+        "ops/zinv_mul_cuda.py", "ops/fri_init_cuda.py",
         "ops/merkle.py", "ops/poseidon_constants.py", "ops/poseidon_fast.py",
         "utils/hash_out.py", "utils/poseidon_host.py", "engine/config.py",
         "engine/witness.py", "engine/generators.py", "engine/challenger.py",
@@ -45,8 +47,9 @@ def test_port_has_its_modules():
         "models/zkdsa/circuits.py",
     ):
         assert want in have, want
-    assert (PORT / "csrc" / "poseidon.cu").is_file()
-    assert (PORT / "csrc" / "goldilocks.cuh").is_file()
+    for source in ("goldilocks.cuh", "runtime.cu", "poseidon.cu", "perm_columns.cu",
+                   "perm_quotient.cu", "zinv_mul.cu", "fri_init.cu"):
+        assert (PORT / "csrc" / source).is_file(), source
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -8,6 +8,7 @@ reject a tampered one.  Everything is exact: ``==``."""
 
 import copy
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -178,6 +179,48 @@ def test_fused_sponge_wiring_gives_the_same_proof(zkdsa):
     # way through prove -> _commit / fold_layers / grind_pow
     proof = zkdsa["t"].prove(zkdsa["tpw"], fused_sponge=True)
     assert t_to_json(proof) == t_to_json(zkdsa["tproof"])
+
+
+KERNEL_WRAPPERS = (
+    ("perm_columns_cuda", "perm_columns_cuda", "perm_columns_plain"),
+    ("perm_quotient_cuda", "perm_quotient_cuda", "perm_quotient_plain"),
+    ("zinv_mul_cuda", "zinv_mul_cuda", "zinv_mul_plain"),
+    ("fri_init_cuda", "fri_initial_cuda", "fri_initial_plain"),
+)
+
+
+def test_prove_goes_through_each_kernel_wrapper_once(zkdsa, monkeypatch):
+    # each of the four wrappers replaced by a counting shim around its plain
+    # version: prove reaches every one through its module, exactly once per proof
+    calls = {}
+
+    def shim(name, plain):
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return plain(*args, **kwargs)
+
+        return counted
+
+    for module, wrapper, plain in KERNEL_WRAPPERS:
+        mod = importlib.import_module(f"intmax_zkp_core_tpu_torch.ops.{module}")
+        monkeypatch.setattr(mod, wrapper, shim(wrapper, getattr(mod, plain)))
+    proof = zkdsa["t"].prove(zkdsa["tpw"])
+    assert calls == {wrapper: 1 for _, wrapper, _ in KERNEL_WRAPPERS}
+    assert t_to_json(proof) == j_to_json(zkdsa["jproof"])
+
+
+def test_timings_split_quotient_and_fri_into_parts_that_add_up(zkdsa):
+    timings = {}
+    proof = tprover.prove(zkdsa["t"], zkdsa["tpw"], timings=timings)
+    assert t_to_json(proof) == t_to_json(zkdsa["tproof"])
+    phases = ("tables", "witness", "commit_wires", "perm_columns", "quotient", "openings", "fri")
+    parts = {
+        "quotient": ("quotient_perm", "quotient_gates", "quotient_finish", "quotient_commit"),
+        "fri": ("fri_combine", "fri_initial", "fri_fold", "fri_grind", "fri_queries"),
+    }
+    assert set(timings) == set(phases) | {p for ps_ in parts.values() for p in ps_}
+    for phase, names in parts.items():
+        assert sum(timings[n] for n in names) == pytest.approx(timings[phase], abs=1e-9)
 
 
 def test_conflicting_witness_is_refused(zkdsa):
