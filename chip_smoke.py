@@ -13,9 +13,10 @@ JSON line describing every kernel, and a last JSON line ``{"ok": true, ...}``.
 Any failed phase raises and the script exits non-zero; without a CUDA device
 it exits 1 at once.
 
-Six kernels are built and held: the Poseidon permutation and sponge, and the
+Eight kernels are built and held: the Poseidon permutation and sponge, the
 four of the permutation argument (permutation columns, permutation terms of
-the quotient, the divide by Z_H, the initial FRI quotient).
+the quotient, the divide by Z_H, the initial FRI quotient), the Poseidon
+gate's share of the quotient and the NTT.
 
 In the kernels line ``max_abs_err`` is the largest absolute difference
 between a kernel's output and its plain version's, taken on the int64 bit
@@ -137,16 +138,20 @@ def time_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, mads: float, mads_as_computed: float) -> dict:
+def bound(n_bytes: float, mads: float, mads_as_computed: float,
+          bytes_as_computed: float | None = None) -> dict:
     """The least time the card could take: the larger of the bytes that must
     move (each input read once, each output written once) over the memory
-    rate and the needed 32-bit multiply-adds over the integer rate."""
+    rate and the needed 32-bit multiply-adds over the integer rate.  The
+    second figure takes the kernel's own multiply-adds and, where it moves
+    more, its own bytes."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = mads / INT32_MAD_PER_S * 1e3
+    moved_ms = (n_bytes if bytes_as_computed is None else bytes_as_computed) / HBM_BYTES_PER_S * 1e3
     return {
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ms_as_computed": max(mads_as_computed / INT32_MAD_PER_S * 1e3, bytes_ms),
+        "bound_ms_as_computed": max(mads_as_computed / INT32_MAD_PER_S * 1e3, moved_ms),
     }
 
 
@@ -209,6 +214,37 @@ def fri_initial_bound(K: int, L: int) -> dict:
     return bound(n_bytes, K * L * 2 * (term + INV_BATCHED), K * L * 2 * (term + INV_AS_COMPUTED))
 
 
+def gate_quotient_bound(K: int, C: int, L: int) -> dict:
+    """K4: the gate's 135 wire rows, sel, acc read once and acc written once.
+    Per point: 118 S-boxes (two squarings, two multiplies), 7 dense MDS layers
+    of small constants (two limb products per entry), the table products of
+    PARTIAL_A / PARTIAL_B (a coefficient below 2^32 as 2 multiply-adds, else
+    4), the swap square and four delta multiplies, and 123 C fold and C
+    selector multiplies.  As computed every table product and S-box multiply
+    is a full one."""
+    from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
+
+    W, n_cs = gqc.GATE.NUM_WIRES_USED, gqc.N_CS
+    coef = gqc.affine_tables()[3]
+    small = sum(1 for c in coef if c < (1 << 32))
+    n_bytes = (K * W * L + L + 2 * K * C * L) * 8 + 4 * K * C * 8
+    common = 7 * MDS_LAYER_MADS + SQR + 4 * MUL + (n_cs * C + C) * MUL
+    mads = SBOXES * (2 * SQR + 2 * MUL) + small * 2 + (len(coef) - small) * MUL + common
+    as_computed = SBOXES * 4 * MUL + len(coef) * MUL + common
+    return bound(n_bytes, K * L * mads, K * L * as_computed)
+
+
+def ntt_bound(B: int, n: int) -> dict:
+    """K2: [B, n] read once and written once; (n/2) log2 n twiddle multiplies
+    per row.  As computed the four-step moves the rows twice and adds a
+    twiddle multiply per point (n > 2^11), the small transform a scale
+    multiply per point of the inverse."""
+    log_n = n.bit_length() - 1
+    mads = B * (n // 2) * log_n * MUL
+    passes = 1 if log_n <= 11 else 2
+    return bound(2 * B * n * 8, mads, mads + B * n * MUL, 2 * passes * B * n * 8)
+
+
 def proof_sha256(proof) -> str:
     from intmax_zkp_core_tpu_torch.engine.serde import proof_to_json
 
@@ -230,8 +266,9 @@ def expect_rejected(circuit, proof) -> None:
 
 
 def expect_once_per_proof(before: dict, after: dict, what: str) -> None:
-    """One proof launches each kernel of the permutation argument once."""
-    for name in NEW_KERNELS:
+    """One proof launches each kernel of the permutation argument and the
+    Poseidon-gate kernel once."""
+    for name in ONCE_PER_PROOF:
         if after[name] - before[name] != 1:
             raise RuntimeError(
                 f"the {what} proof launched {name} {after[name] - before[name]} times, not once")
@@ -324,6 +361,7 @@ def phase_timings(device, rng):
 
 
 NEW_KERNELS = ("perm_columns_cuda", "perm_quotient_cuda", "zinv_mul_cuda", "fri_initial_cuda")
+ONCE_PER_PROOF = NEW_KERNELS + ("poseidon_gate_quotient_cuda",)
 
 
 def perm_columns_inputs(rng, device, K, C, R, n, extra_rows=0):
@@ -462,6 +500,116 @@ def phase_perm_timings(device, rng, log_rows):
     return out
 
 
+def gate_quotient_inputs(rng, device, K, C, L, extra_rows=0):
+    return [rand_field(rng, (K, 135 + extra_rows, L), device), rand_field(rng, (L,), device),
+            rand_field(rng, (K, C), device), rand_field(rng, (K, C, L), device),
+            rand_field(rng, (K, C), device)]
+
+
+def phase_gate_ntt_kernels(device, rng, log_rows):
+    """K4 and K2 against their plain versions on the card.  K4 at K in {1, 3},
+    C = 2, 64 / 2^14 / the main path's LDE points, the wire matrix with its
+    135 rows at K = 1 and with two more at K = 3; K2 at every length 2^0 ..
+    2^22 at B = 1 and at B = 135 with the main path's lengths, both
+    directions, and the round trip through the public entry points."""
+    from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
+    from intmax_zkp_core_tpu_torch.ops import ntt as nt
+    from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
+
+    names = ("poseidon_gate_quotient_cuda", "ntt_cuda")
+    worst, err = dict.fromkeys(names, 0), dict.fromkeys(names, 0.0)
+
+    def hold(kernel, got, want, **fields):
+        bad = sum(mismatches(g, w) for g, w in zip(got, want))
+        worst[kernel] = max(worst[kernel], bad)
+        err[kernel] = max([err[kernel]] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        log("kernels", kernel=kernel, **fields, mismatches=bad)
+
+    C = 2
+    for L in (64, 1 << 14, 1 << (log_rows + 3)):
+        for K in (1, 3):
+            args = gate_quotient_inputs(rng, device, K, C, L, extra_rows=0 if K == 1 else 2)
+            hold("poseidon_gate_quotient_cuda", gqc.poseidon_gate_quotient_cuda(*args),
+                 gqc.poseidon_gate_quotient_plain(*args), plain="poseidon_gate_quotient_plain",
+                 K=K, C=C, L=L, wire_rows=args[0].shape[1])
+            del args
+    shapes = [(1, log_n) for log_n in range(nc.MAX_LOG_N + 1)]
+    shapes += [(135, log_rows), (135, log_rows + 3)]
+    for B, log_n in shapes:
+        x = rand_field(rng, (B, 1 << log_n), device)
+        for inverse in (False, True):
+            hold("ntt_cuda", [nc.ntt_cuda(x, inverse)], [nc.ntt_plain(x, inverse)],
+                 plain="ops.ntt._ntt_impl", B=B, n=1 << log_n, inverse=inverse)
+        if log_n in (1, 11, 12, log_rows, log_rows + 3, nc.MAX_LOG_N):
+            back = nt.intt(nt.ntt(x))
+            hold("ntt_cuda", [back], [x], against="intt(ntt(x)) == x", B=B, n=1 << log_n)
+        del x
+    try:
+        nc.ntt_cuda(torch.zeros((1, 2 << nc.MAX_LOG_N), dtype=torch.int64, device=device))
+    except ValueError:
+        log("kernels", kernel="ntt_cuda", n=2 << nc.MAX_LOG_N, above_the_limit="raises")
+    else:
+        raise RuntimeError("ntt_cuda took a length above its stated limit")
+    torch.cuda.synchronize()
+    if any(worst.values()) or any(err.values()):
+        raise RuntimeError(f"kernel disagrees with its plain version: {worst} {err}")
+    return err
+
+
+def phase_gate_ntt_timings(device, rng, log_rows):
+    """K4 and K2 at the shapes a proof of 2^log_rows rows gives them: K4 over
+    the 135 wire rows of the LDE with C = 2, K2 as the wires' intt [135, n]
+    and their coset LDE's ntt [135, 8 n].  The plain versions are timed once
+    (the plain K4 at 2^18 points is some hundreds of launches)."""
+    from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
+    from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
+
+    n, L, C = 1 << log_rows, 1 << (log_rows + 3), 2
+    flush = torch.empty(64 << 20, dtype=torch.int64, device=device)  # 512 MB
+    out = {}
+    args = gate_quotient_inputs(rng, device, 1, C, L)
+    out["poseidon_gate_quotient_cuda"] = {
+        "shape": [1, 135, L], "C": C,
+        "ms": time_ms(lambda: gqc.poseidon_gate_quotient_cuda(*args), 10, flush),
+        "plain_ms": time_ms(lambda: gqc.poseidon_gate_quotient_plain(*args), 1, flush),
+        **gate_quotient_bound(1, C, L)}
+    log("timing", kernel="poseidon_gate_quotient_cuda", **out["poseidon_gate_quotient_cuda"])
+    del args
+    for name, (rows, length, inverse) in (("ntt_cuda_intt_wires", (135, n, True)),
+                                          ("ntt_cuda", (135, L, False))):
+        x = rand_field(rng, (rows, length), device)
+        out[name] = {
+            "shape": [rows, length], "inverse": inverse, "launches_per_call": nc.launches_for(length),
+            "ms": time_ms(lambda: nc.ntt_cuda(x, inverse), 10, flush),
+            "plain_ms": time_ms(lambda: nc.ntt_plain(x, inverse), 2, flush),
+            **ntt_bound(rows, length)}
+        log("timing", kernel="ntt_cuda", **out[name])
+        del x
+    del flush
+    return out
+
+
+def ntt_launches_per_proof(common) -> int:
+    """``ntt_cuda`` launches of one proof, by its call sites: the intt and the
+    coset LDE's ntt of the wires' and of the Z / partial-product commitments,
+    the intt of quotient_finish and the ntt of the quotient commitment (at
+    the LDE size), and the two coset_ilde of the FRI final polynomial."""
+    from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
+
+    fri = common.config.fri
+    n, lde_n = common.n, common.n * fri.blowup
+    final_n = min(lde_n, fri.final_poly_len * fri.blowup)
+    return (2 * nc.launches_for(n) + 4 * nc.launches_for(lde_n) + 2 * nc.launches_for(final_n))
+
+
+def expect_ntt_launches(before: dict, after: dict, common, what: str) -> int:
+    got = after["ntt_cuda"] - before["ntt_cuda"]
+    want = ntt_launches_per_proof(common)
+    if got != want:
+        raise RuntimeError(f"the {what} proof launched ntt_cuda {got} times, not {want}")
+    return got
+
+
 def phase_zkdsa(device, golden_path):
     from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig
     from intmax_zkp_core_tpu_torch.models.zkdsa import make_simple_signature_circuit
@@ -481,6 +629,7 @@ def phase_zkdsa(device, golden_path):
     if c2["permute_cuda"] - c1["permute_cuda"] <= 0:
         raise RuntimeError("the zkDSA proof launched no permute_cuda kernel")
     expect_once_per_proof(c1, c2, "zkDSA")
+    expect_ntt_launches(c1, c2, circuit.data.common, "zkDSA")
     circuit.verify(proof)
     t3 = time.perf_counter()
     expect_rejected(circuit, proof)
@@ -492,7 +641,7 @@ def phase_zkdsa(device, golden_path):
     log("zkdsa", rows=circuit.data.common.n, build_s=round(t1 - t0, 3),
         prove_s=round(t2 - t1, 3), verify_s=round(t3 - t2, 3), tampered="rejected",
         sha256=digest, golden="equal",
-        permute_cuda_launches_build=c1["permute_cuda"] - c0["permute_cuda"],
+        launches_build={k: c1[k] - c0[k] for k in c1 if c1[k] - c0[k]},
         launches_prove={k: c2[k] - c1[k] for k in c2 if c2[k] - c1[k]})
 
 
@@ -540,12 +689,13 @@ def phase_chain(device, log_rows):
     log("chain", rows=n, log_rows=log_rows, links=circuit.num_links,
         build_s=round(t1 - t0, 3), prove_s=round(t2 - t1, 3), verify_s=round(t3 - t2, 3),
         tampered="rejected",
-        permute_cuda_launches_build=after_build["permute_cuda"] - c0["permute_cuda"],
+        launches_build={k: after_build[k] - c0[k] for k in after_build if after_build[k] - c0[k]},
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     log("chain-phases", **{k: round(v, 4) for k, v in timings.items()})
     expect_parts_add_up(timings)
     after_chained = pc.launch_counts()
     expect_once_per_proof(after_build, after_chained, "chain (chained wiring)")
+    expect_ntt_launches(after_build, after_chained, circuit.data.common, "chain (chained wiring)")
 
     # the same proof through the fused-sponge wiring
     t0 = time.perf_counter()
@@ -554,6 +704,7 @@ def phase_chain(device, log_rows):
     t1 = time.perf_counter()
     after_fused = pc.launch_counts()
     expect_once_per_proof(after_chained, after_fused, "chain (fused wiring)")
+    expect_ntt_launches(after_chained, after_fused, circuit.data.common, "chain (fused wiring)")
     log("chain-launches-per-proof",
         chained_wiring={k: after_chained[k] - after_build[k] for k in after_build},
         fused_wiring={k: after_fused[k] - after_chained[k] for k in after_build})
@@ -575,6 +726,8 @@ def phase_chain_plain(circuit, seed, salt, proof):
     version, so for this one comparison every kernel wrapper is replaced by
     its plain version here and put back afterwards."""
     from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
+    from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
+    from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
     from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
     from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
     from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
@@ -587,6 +740,8 @@ def phase_chain_plain(circuit, seed, salt, proof):
         (pq, "perm_quotient_cuda", pq.perm_quotient_plain),
         (zm, "zinv_mul_cuda", zm.zinv_mul_plain),
         (fi, "fri_initial_cuda", fi.fri_initial_plain),
+        (gqc, "poseidon_gate_quotient_cuda", gqc.poseidon_gate_quotient_plain),
+        (nc, "ntt_cuda", nc.ntt_plain),
     )
     before = pc.launch_counts()
     t0 = time.perf_counter()
@@ -644,8 +799,10 @@ def main() -> int:
     rng = np.random.default_rng(20240917)
     err = phase_kernels(device, rng)
     err.update(phase_perm_kernels(device, rng, args.log_rows))
+    err.update(phase_gate_ntt_kernels(device, rng, args.log_rows))
     timing = phase_timings(device, rng)
     timing.update(phase_perm_timings(device, rng, args.log_rows))
+    timing.update(phase_gate_ntt_timings(device, rng, args.log_rows))
 
     # ---- 4./5. the main path, launch counts read around it ----
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -654,8 +811,8 @@ def main() -> int:
     phase_zkdsa(device, golden)
     chain = phase_chain(device, args.log_rows)
     main_counts = pc.launch_counts()  # read just after the main path
-    if len(main_counts) != 6:
-        raise RuntimeError(f"expected the counts of six kernels, got {main_counts}")
+    if len(main_counts) != 8:
+        raise RuntimeError(f"expected the counts of eight kernels, got {main_counts}")
     for name, count in main_counts.items():
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
@@ -670,6 +827,9 @@ def main() -> int:
         ("perm_quotient_cuda", "perm_quotient.cu", "perm_quotient_pallas.py:193", "perm_quotient_cuda"),
         ("zinv_mul_cuda", "zinv_mul.cu", "zinv_mul_pallas.py:90", "zinv_mul_cuda"),
         ("fri_initial_cuda", "fri_init.cu", "fri_init_pallas.py:159", "fri_initial_cuda"),
+        ("poseidon_gate_quotient_cuda", "gate_quotient.cu", "gate_quotient_pallas.py:279",
+         "poseidon_gate_quotient_cuda"),
+        ("ntt_cuda", "ntt.cu", "ntt_pallas.py:227", "ntt_cuda"),
     )
     kernels = []
     for name, source, replaces, timed in table:

@@ -8,8 +8,9 @@
 // Design: one thread per permutation, the twelve-lane state in 64-bit
 // registers through all 30 rounds (4 full, 22 partial, 4 full), a grid-stride
 // loop over rows so any batch size B >= 1 runs without padding.  Round
-// constants and the circulant MDS row sit in __constant__ memory: every
-// thread of a warp reads the same entry, which the constant cache broadcasts.
+// constants and the circulant MDS row sit in __constant__ memory, and the full
+// round and MDS layer are those of poseidon_round.cuh (shared with the
+// Poseidon-gate kernel).
 //
 // What bounds it on this card: a permutation moves 192 bytes (12 u64 in, 12
 // out) but performs 8*12 + 22 = 118 S-boxes of four 64x64->128 multiplies
@@ -22,54 +23,10 @@
 // Plain C interface, loaded with ctypes: each launcher returns
 // cudaGetLastError() so that the Python wrapper can raise (runtime.cu turns
 // the code into text).
-#include <cuda_runtime.h>
+#include "poseidon_round.cuh"
 
-#include "goldilocks.cuh"
-
-#define T 12
 #define RATE 8
-#define N_ROUNDS 30
-#define HALF_FULL 4
-#define N_PARTIAL 22
 #define THREADS 128
-
-__constant__ u64 c_round_constants[N_ROUNDS * T];
-__constant__ unsigned int c_mds_circ[T];  // entries < 2^6: 32x32->64 multiply-adds suffice
-__constant__ unsigned int c_mds_diag0;
-
-// out[r] = sum_i CIRC[i] * s[(r + i) % 12]  (+ DIAG[0] * s[0] on lane 0),
-// accumulated per 32-bit limb (each accumulator < 2^42), recombined to a
-// (top, low) pair and reduced once per lane.
-__device__ __forceinline__ void mds_layer(u64 (&s)[T]) {
-    unsigned int lo[T], hi[T];
-#pragma unroll
-    for (int i = 0; i < T; ++i) {
-        lo[i] = (unsigned int)s[i];
-        hi[i] = (unsigned int)(s[i] >> 32);
-    }
-#pragma unroll
-    for (int r = 0; r < T; ++r) {
-        u64 acc_lo = 0, acc_hi = 0;
-#pragma unroll
-        for (int i = 0; i < T; ++i) {
-            acc_lo += (u64)c_mds_circ[i] * lo[(r + i) % T];
-            acc_hi += (u64)c_mds_circ[i] * hi[(r + i) % T];
-        }
-        if (r == 0) {
-            acc_lo += (u64)c_mds_diag0 * lo[0];
-            acc_hi += (u64)c_mds_diag0 * hi[0];
-        }
-        u64 low = acc_lo + (acc_hi << 32);
-        u64 top = (acc_hi >> 32) + (low < acc_lo ? 1ULL : 0ULL);
-        s[r] = gl_reduce128(top, low);
-    }
-}
-
-__device__ __forceinline__ void full_round(u64 (&s)[T], int rnd) {
-#pragma unroll
-    for (int i = 0; i < T; ++i) s[i] = gl_sbox7(gl_add(s[i], c_round_constants[rnd * T + i]));
-    mds_layer(s);
-}
 
 __device__ __forceinline__ void partial_round(u64 (&s)[T], int rnd) {
 #pragma unroll
@@ -143,15 +100,7 @@ extern "C" {
 // Upload the constants (host arrays: 360 round constants, 12 circulant
 // entries, the one non-zero diagonal entry).  Called once after loading.
 int poseidon_set_constants(const u64* round_constants, const u64* mds_circ, u64 mds_diag0) {
-    cudaError_t err = cudaMemcpyToSymbol(c_round_constants, round_constants, sizeof(u64) * N_ROUNDS * T);
-    if (err != cudaSuccess) return (int)err;
-    unsigned int circ[T];
-    for (int i = 0; i < T; ++i) circ[i] = (unsigned int)mds_circ[i];
-    unsigned int diag0 = (unsigned int)mds_diag0;
-    err = cudaMemcpyToSymbol(c_mds_circ, circ, sizeof(circ));
-    if (err != cudaSuccess) return (int)err;
-    err = cudaMemcpyToSymbol(c_mds_diag0, &diag0, sizeof(diag0));
-    return (int)err;
+    return poseidon_round_upload(round_constants, mds_circ, mds_diag0);
 }
 
 int poseidon_permute(const void* in, void* out, long long B, void* stream) {

@@ -125,7 +125,9 @@ def grind_pow(
         return 0
     device = gl.resolve_device(device)
     c = challenger.get_challenge()
-    batch = 1 << 14
+    # about four expected hits' worth of nonces per batch, at most 2^14: the
+    # lowest nonce found does not depend on the batch
+    batch = min(1 << 14, 1 << (pow_bits + 2))
     threshold = 1 << (64 - pow_bits)
     base = 0
     while True:

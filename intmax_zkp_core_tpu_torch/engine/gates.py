@@ -305,8 +305,8 @@ class PoseidonGate(Gate):
     def eval_constraints_batched(self, wires, consts, public_hash):
         """Vectorized batched evaluation over [L] wire tensors — identical
         constraints to ``eval_constraints`` but built from tensor-level ops
-        (stacked lanes, roll-based MDS, table products as small
-        multiply-accumulate loops).  Used by the prover's quotient; the
+        (stacked lanes, the MDS as a matrix product, each affine table row as
+        one product over its basis and a halving sum).  Used by the prover's quotient; the
         verifier's point evaluation uses the generic scalar path."""
         import torch
 
@@ -325,16 +325,26 @@ class PoseidonGate(Gate):
         def rc_vec(rnd):
             return rc_all[rnd][:, None]
 
-        def table_row(row, Y, xs_list, n_x):
-            acc = torch.full(wires[0].shape, gl.i64(row[0] % gl.P_INT),
-                             dtype=torch.int64, device=device)
-            for j in range(T):
-                if row[1 + j]:
-                    acc = gl.add(acc, gl.mul(Y[j], gl.i64(row[1 + j])))
-            for j in range(n_x):
-                if row[1 + T + j]:
-                    acc = gl.add(acc, gl.mul(xs_list[j], gl.i64(row[1 + T + j])))
-            return acc
+        # the affine tables' basis [Y_0..Y_11, x_0..x_21]; x_i is filled in as made
+        basis = torch.empty((T + N_PARTIAL_ROUNDS,) + wires[0].shape, dtype=torch.int64,
+                            device=device)
+
+        def table_rows(rows, n_x):
+            """row[0] + sum_j row[1 + j] * basis[j] over the first T + n_x basis
+            rows, for every row of ``rows``: one product and a halving sum (the
+            arithmetic is exact mod p, so this equals a term-by-term fold)."""
+            m = T + n_x
+            coef = torch.tensor([[gl.i64(r[1 + j] % gl.P_INT) for j in range(m)] for r in rows],
+                                dtype=torch.int64, device=device)
+            t = gl.mul(basis[None, :m], coef[:, :, None])  # [rows, m, L]
+            while t.shape[1] > 1:
+                if t.shape[1] % 2:
+                    t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+                half = t.shape[1] // 2
+                t = gl.add(t[:, :half], t[:, half:])
+            const = torch.tensor([gl.i64(r[0] % gl.P_INT) for r in rows], dtype=torch.int64,
+                                 device=device)
+            return gl.add(const[:, None], t[:, 0])
 
         cs = []
         swap = wires[self.W_SWAP]
@@ -361,17 +371,15 @@ class PoseidonGate(Gate):
             diffs = gl.sub(tgt, nxt)
             cs.extend(diffs[i] for i in range(12))
             state = tgt
-        Y = sbox(gl.add(state, rc_vec(3)))  # [12, L]
+        basis[:T] = sbox(gl.add(state, rc_vec(3)))  # Y [12, L]
 
-        xs_list = []
         b_stack = stack([wires[self.W_PARTIAL + i] for i in range(N_PARTIAL_ROUNDS)])
         for i in range(N_PARTIAL_ROUNDS):
-            cs.append(gl.sub(b_stack[i], table_row(PARTIAL_A[i], Y, xs_list, i)))
-            xs_list.append(sbox(b_stack[i]))
+            cs.append(gl.sub(b_stack[i], table_rows([PARTIAL_A[i]], i)[0]))
+            basis[T + i] = sbox(b_stack[i])
         s26 = stack([wires[self.W_S26 + i] for i in range(12)])
-        for lane in range(T):
-            acc = table_row(PARTIAL_B[lane], Y, xs_list, N_PARTIAL_ROUNDS)
-            cs.append(gl.sub(s26[lane], acc))
+        diffs = gl.sub(s26, table_rows(PARTIAL_B, N_PARTIAL_ROUNDS))
+        cs.extend(diffs[lane] for lane in range(T))
 
         state = s26
         for k in range(3):

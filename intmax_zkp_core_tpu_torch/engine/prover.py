@@ -3,14 +3,17 @@ argument -> quotient -> FRI opening proof.
 
 This is the counterpart of ``CircuitData::prove``.  All polynomial work is
 batched tensor code on the device; host code only orchestrates and runs the
-Fiat-Shamir transcript.  When the circuit lives on the card, every Merkle
-commitment hashes through the Poseidon CUDA kernels (``ops/poseidon_cuda.py``)
-and the permutation argument runs through four more: the permutation columns
-(``ops/perm_columns_cuda.py``), the permutation terms of the quotient
-(``ops/perm_quotient_cuda.py``), the divide by Z_H (``ops/zinv_mul_cuda.py``)
-and the initial FRI quotient (``ops/fri_init_cuda.py``).  Each wrapper is
-reached through its module and picks kernel or plain version by where its
-tensors lie.  Everything else is plain PyTorch on int64 bit patterns.
+Fiat-Shamir transcript.  When the circuit lives on the card, every NTT runs
+through the NTT kernel (``ops/ntt_cuda.py``, reached through ``ops/ntt.py``),
+every Merkle commitment hashes through the Poseidon CUDA kernels
+(``ops/poseidon_cuda.py``), the permutation argument runs through four more:
+the permutation columns (``ops/perm_columns_cuda.py``), the permutation terms
+of the quotient (``ops/perm_quotient_cuda.py``), the divide by Z_H
+(``ops/zinv_mul_cuda.py``) and the initial FRI quotient
+(``ops/fri_init_cuda.py``), and the Poseidon gate's constraints of the
+quotient through ``ops/gate_quotient_cuda.py``.  Each wrapper is reached
+through its module and picks kernel or plain version by where its tensors
+lie.  Everything else is plain PyTorch on int64 bit patterns.
 
 The proof is bit-identical to the JAX package's for the same circuit and
 witness: the arithmetic is exact mod p and the transcript deterministic.
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import fri_init_cuda as fi
+from ..ops import gate_quotient_cuda as gqc
 from ..ops import goldilocks as gl
 from ..ops import merkle as mk
 from ..ops import ntt as nt
@@ -293,19 +297,28 @@ def get_circuit_kernels(pd, device):
         return gl.mul(nt.intt(q_evals), shift_pows_c).reshape(C * blowup, n)
 
     sel_cols = [sel_lde[i] for i in range(n_sel)]
+    # the Poseidon gate goes through its kernel, every other gate through the
+    # plain fold of ``_gate_quotient_chunk``
     gate_chunks = [
-        (gi, _gate_quotient_chunk(gate_id, cfg.num_wires, common.n_const_cols, C))
+        (gi, None if gate_id == "poseidon"
+         else _gate_quotient_chunk(gate_id, cfg.num_wires, common.n_const_cols, C))
         for gi, gate_id in enumerate(common.gate_ids)
         if GATE_TYPES[gate_id].num_constraints
     ]
 
     def quotient_gates(wires_lde, pi_hash, alphas, acc, apows):
         """acc [C, lde_n] plus every gate's selector-filtered constraints,
-        alpha-combined from the powers ``apows`` on."""
+        alpha-combined from the powers ``apows`` on, gate by gate in the
+        verifier's order."""
         for gi, fn in gate_chunks:
-            acc, apows = fn(
-                wires_lde, sel_cols[gi], const_lde, pi_hash, alphas, acc, apows
-            )
+            if fn is None:
+                acc, apows = gqc.poseidon_gate_quotient_cuda(
+                    wires_lde[None], sel_cols[gi], alphas[None], acc[None], apows[None])
+                acc, apows = acc[0], apows[0]
+            else:
+                acc, apows = fn(
+                    wires_lde, sel_cols[gi], const_lde, pi_hash, alphas, acc, apows
+                )
         return acc
 
     kernels = {

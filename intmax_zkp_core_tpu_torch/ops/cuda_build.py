@@ -8,7 +8,7 @@ first use, and again whenever a source is newer than the library.  A compiler
 or loader failure is an exception: no caller carries on without its kernel.
 
 The wrappers live beside their plain PyTorch versions in
-``ops/{poseidon,zinv_mul,fri_init,perm_quotient,perm_columns}_cuda.py``.  Each
+``ops/{poseidon,zinv_mul,fri_init,perm_quotient,perm_columns,gate_quotient,ntt}_cuda.py``.  Each
 adds one to its entry of ``LAUNCHES`` where it launches its kernel, and
 nowhere else.
 """
@@ -38,14 +38,16 @@ LAUNCHES = {
     "perm_quotient_cuda": 0,
     "zinv_mul_cuda": 0,
     "fri_initial_cuda": 0,
+    "poseidon_gate_quotient_cuda": 0,
+    "ntt_cuda": 0,
 }
 
-_VP, _LL, _CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_VP, _LL, _CI, _ULL = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong
 # C interface of the library: every pointer and the stream as c_void_p (left
 # undeclared, ctypes would cut them to 32 bits); every launcher returns
 # cudaGetLastError().
 _ARGTYPES = {
-    "poseidon_set_constants": [_VP, _VP, ctypes.c_ulonglong],
+    "poseidon_set_constants": [_VP, _VP, _ULL],
     "poseidon_permute": [_VP, _VP, _LL, _VP],
     "poseidon_hash_no_pad": [_VP, _LL, _LL, _CI, _VP, _LL, _VP],
     "zinv_mul": [_VP, _VP, _VP, _LL, _LL, _VP],
@@ -54,6 +56,10 @@ _ARGTYPES = {
                       _CI, _CI, _CI, _CI, _LL, _LL, _VP],
     "perm_columns_stage1": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                             _CI, _CI, _CI, _CI, _LL, _VP],
+    "gate_quotient_set_constants": [_VP, _VP, _ULL, _VP, _VP, _VP, _VP, _VP, _CI],
+    "gate_quotient": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _LL, _VP],
+    "ntt_local": [_VP, _VP, _CI, _CI, _LL, _CI, _LL, _LL, _LL, _LL, _LL, _VP, _VP, _LL, _LL,
+                  _ULL, _CI, _VP],
 }
 
 _lib = None

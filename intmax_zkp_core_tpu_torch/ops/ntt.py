@@ -1,10 +1,12 @@
-"""NTT / inverse NTT / coset LDE over Goldilocks (plain PyTorch).
+"""NTT / inverse NTT / coset LDE over Goldilocks.
 
-The polynomial engine under the prover's commitments and quotient.  One
-formulation: bit-reversal gather followed by log2(n) radix-2 butterfly
-stages, batch-first ``[..., n]`` so many polynomials transform at once.  All
-arithmetic is exact mod p, so the values equal those of any other NTT
-formulation bit for bit.
+The polynomial engine under the prover's commitments and quotient,
+batch-first ``[..., n]`` so many polynomials transform at once.  ``ntt`` and
+``intt`` launch the CUDA kernel (``ops/ntt_cuda.py::ntt_cuda``) for a tensor
+on the card and take the plain version, ``_ntt_impl``, for a tensor on the
+CPU.  The plain version is one formulation: bit-reversal gather followed by
+log2(n) radix-2 butterfly stages.  All arithmetic is exact mod p, so the
+values equal those of any other NTT formulation bit for bit.
 
 Order convention: ``ntt`` maps coefficients -> evaluations at powers of the
 canonical 2^k-th root of unity, natural order; NTT(a)[i] = sum_j a_j w^(ij).
@@ -64,14 +66,24 @@ def _ntt_impl(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     return x
 
 
+def _ntt_dispatch(a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The transform of every row of [..., n] through ``ntt_cuda``: the
+    kernel for a tensor on the card (it launches or raises), the plain
+    version for a tensor on the CPU."""
+    from .ntt_cuda import ntt_cuda
+
+    n = a.shape[-1]
+    return ntt_cuda(a.reshape(-1, n).contiguous(), inverse).reshape(a.shape)
+
+
 def ntt(a, device=None) -> torch.Tensor:
     """Coefficients -> evaluations on the size-n subgroup (natural order)."""
-    return _ntt_impl(gl.as_field(a, device), False)
+    return _ntt_dispatch(gl.as_field(a, device), False)
 
 
 def intt(a, device=None) -> torch.Tensor:
     """Evaluations -> coefficients."""
-    return _ntt_impl(gl.as_field(a, device), True)
+    return _ntt_dispatch(gl.as_field(a, device), True)
 
 
 @lru_cache(maxsize=64)

@@ -27,6 +27,8 @@ State layout is ``[..., 12]`` int64 bit patterns of canonical u64 values
 
 from __future__ import annotations
 
+import operator
+
 import torch
 
 from . import goldilocks as gl
@@ -71,30 +73,36 @@ def _sbox(x):
     return gl.mul(x6, x)
 
 
+_MDS_CACHE: dict = {}
+
+
+def _mds_matrix_t(device: torch.device) -> torch.Tensor:
+    """M^T as float64 on ``device`` (uploaded once per device)."""
+    m = _MDS_CACHE.get(device)
+    if m is None:
+        m = torch.tensor(_MDS_INT, dtype=torch.float64).t().contiguous().to(device)
+        _MDS_CACHE[device] = m
+    return m
+
+
 def _mds_layer(state: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """M @ state along ``dim`` (size 12), via 32-bit limb accumulation.
 
-    The circulant structure turns the matrix product into 12 lane-rolls
-    scaled by small constants (out[r] = sum_i CIRC[i] * state[(r+i) % 12],
-    plus DIAG[0] * state[0] on lane 0).  With coefficients <= 49 and 13 terms
-    the limb accumulators stay < 2^42, so a single (hi, lo) recombination +
-    reduce128 per output lane suffices.
+    The two limb sums acc[r] = sum_c M[r][c] * limb[c] are one small matrix
+    product each, taken in float64: the coefficients are <= 49 and the limbs
+    < 2^32, so every partial sum is an integer below 2^42 < 2^53 and the
+    product is exact in any summation order.  A single (hi, lo)
+    recombination + reduce128 per output lane follows.
     """
-    lo = state & gl.MASK32
-    hi = gl._lsr32(state)
-    acc_lo = torch.zeros_like(lo)
-    acc_hi = torch.zeros_like(hi)
-    for i, c in enumerate(MDS_MATRIX_CIRC):
-        acc_lo = acc_lo + c * torch.roll(lo, -i, dims=dim)
-        acc_hi = acc_hi + c * torch.roll(hi, -i, dims=dim)
-    d = MDS_MATRIX_DIAG[0]
-    acc_lo.select(dim, 0).add_(d * lo.select(dim, 0))
-    acc_hi.select(dim, 0).add_(d * hi.select(dim, 0))
+    x = state.movedim(dim, -1)
+    mt = _mds_matrix_t(x.device)
+    acc_lo = ((x & gl.MASK32).double() @ mt).to(torch.int64)
+    acc_hi = (gl._lsr32(x).double() @ mt).to(torch.int64)
     # value = acc_lo + acc_hi * 2^32, both < 2^42
     s = acc_lo + (acc_hi << 32)
     carry = gl._ult(s, acc_lo).to(torch.int64)
     top = gl._lsr32(acc_hi) + carry
-    return gl.reduce128(top, s)
+    return gl.reduce128(top, s).movedim(-1, dim)
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
@@ -199,7 +207,7 @@ def permute_s(state):
             state = [_sbox_s(s) for s in state]
         else:
             state[0] = _sbox_s(state[0])
-        state = [sum(m * s for m, s in zip(row, state)) % _P for row in _MDS_INT]
+        state = [sum(map(operator.mul, row, state)) % _P for row in _MDS_INT]
     return state
 
 

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
+from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
 from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
+from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
 from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
 from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
 from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
@@ -134,3 +136,39 @@ def test_new_wrappers_never_take_the_plain_path_for_a_cuda_tensor(card):
     with pytest.raises(ValueError):
         pq.perm_quotient_cuda(wires, _rand(7, (1, 2, 64), card), _rand(8, (1, 2, 0, 64), card),
                               scal, scal, scal, tbl, z_h, z_h, _rand(9, (7,), card), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,C,L", [(1, 2, 64), (3, 2, 1030), (2, 4, 200)])
+def test_poseidon_gate_quotient_cuda_equals_plain(card, K, C, L):
+    args = [_rand(30, (K, 137, L), card), _rand(31, (L,), card), _rand(32, (K, C), card),
+            _rand(33, (K, C, L), card), _rand(34, (K, C), card)]
+    before = pc.launch_counts()["poseidon_gate_quotient_cuda"]
+    acc, apows = gqc.poseidon_gate_quotient_cuda(*args)
+    assert pc.launch_counts()["poseidon_gate_quotient_cuda"] == before + 1
+    want_acc, want_apows = gqc.poseidon_gate_quotient_plain(*args)
+    assert torch.equal(acc, want_acc) and torch.equal(apows, want_apows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,log_n", [(1, 0), (3, 1), (5, 6), (2, 11), (3, 12), (2, 15), (1, 17)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_cuda_equals_plain(card, B, log_n, inverse):
+    x = _rand(40 + log_n, (B, 1 << log_n), card)
+    before = pc.launch_counts()["ntt_cuda"]
+    got = nc.ntt_cuda(x, inverse)
+    assert pc.launch_counts()["ntt_cuda"] == before + nc.launches_for(1 << log_n)
+    assert torch.equal(got, nc.ntt_plain(x, inverse))
+
+
+@pytest.mark.cuda
+def test_ntt_and_gate_wrappers_never_take_the_plain_path_for_a_cuda_tensor(card):
+    x = _rand(50, (8, 64), card)
+    with pytest.raises(ValueError):
+        nc.ntt_cuda(x.t(), False)  # strided rows
+    with pytest.raises(ValueError):
+        nc.ntt_cuda(_rand(51, (1, 1 << 23), card), False)  # above the stated limit
+    args = [_rand(52, (1, 135, 64), card), _rand(53, (64,), card), _rand(54, (1, 5), card),
+            _rand(55, (1, 5, 64), card), _rand(56, (1, 5), card)]
+    with pytest.raises(ValueError):
+        gqc.poseidon_gate_quotient_cuda(*args)  # C = 5 above the kernel's four

@@ -38,7 +38,8 @@ def test_port_has_its_modules():
     for want in (
         "ops/goldilocks.py", "ops/poseidon.py", "ops/poseidon_cuda.py", "ops/ntt.py",
         "ops/cuda_build.py", "ops/perm_columns_cuda.py", "ops/perm_quotient_cuda.py",
-        "ops/zinv_mul_cuda.py", "ops/fri_init_cuda.py",
+        "ops/zinv_mul_cuda.py", "ops/fri_init_cuda.py", "ops/gate_quotient_cuda.py",
+        "ops/ntt_cuda.py",
         "ops/merkle.py", "ops/poseidon_constants.py", "ops/poseidon_fast.py",
         "utils/hash_out.py", "utils/poseidon_host.py", "engine/config.py",
         "engine/witness.py", "engine/generators.py", "engine/challenger.py",
@@ -47,8 +48,9 @@ def test_port_has_its_modules():
         "models/zkdsa/circuits.py",
     ):
         assert want in have, want
-    for source in ("goldilocks.cuh", "runtime.cu", "poseidon.cu", "perm_columns.cu",
-                   "perm_quotient.cu", "zinv_mul.cu", "fri_init.cu"):
+    for source in ("goldilocks.cuh", "poseidon_round.cuh", "runtime.cu", "poseidon.cu",
+                   "perm_columns.cu", "perm_quotient.cu", "zinv_mul.cu", "fri_init.cu",
+                   "gate_quotient.cu", "ntt.cu"):
         assert (PORT / "csrc" / source).is_file(), source
 
 

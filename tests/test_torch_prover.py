@@ -28,6 +28,7 @@ from intmax_zkp_core_tpu_torch.engine.serde import proof_from_json, proof_to_jso
 from intmax_zkp_core_tpu_torch.engine.witness import PartialWitness as TWitness
 from intmax_zkp_core_tpu_torch.models.hash_chain import make_hash_chain_circuit
 from intmax_zkp_core_tpu_torch.models.zkdsa import make_simple_signature_circuit as t_make_zkdsa
+from intmax_zkp_core_tpu_torch.ops import goldilocks as tgl
 from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut as THashOut
 
 torch.set_num_threads(1)
@@ -174,11 +175,11 @@ def test_both_reject_a_tampered_proof(case, what):
         case["j"].verify(_tampered(case["jproof"], what))
 
 
-def test_fused_sponge_wiring_gives_the_same_proof(zkdsa):
+def test_fused_sponge_wiring_gives_the_same_proof(zkdsa, instrumented):
     # on the CPU both wirings end in the plain version; this holds the keyword's
-    # way through prove -> _commit / fold_layers / grind_pow
-    proof = zkdsa["t"].prove(zkdsa["tpw"], fused_sponge=True)
-    assert t_to_json(proof) == t_to_json(zkdsa["tproof"])
+    # way through prove -> _commit / fold_layers / grind_pow (the instrumented
+    # proof is made with fused_sponge=True)
+    assert t_to_json(instrumented["proof"]) == t_to_json(zkdsa["tproof"])
 
 
 KERNEL_WRAPPERS = (
@@ -186,13 +187,17 @@ KERNEL_WRAPPERS = (
     ("perm_quotient_cuda", "perm_quotient_cuda", "perm_quotient_plain"),
     ("zinv_mul_cuda", "zinv_mul_cuda", "zinv_mul_plain"),
     ("fri_init_cuda", "fri_initial_cuda", "fri_initial_plain"),
+    ("gate_quotient_cuda", "poseidon_gate_quotient_cuda", "poseidon_gate_quotient_plain"),
+    ("ntt_cuda", "ntt_cuda", "ntt_plain"),
 )
 
 
-def test_prove_goes_through_each_kernel_wrapper_once(zkdsa, monkeypatch):
-    # each of the four wrappers replaced by a counting shim around its plain
-    # version: prove reaches every one through its module, exactly once per proof
-    calls = {}
+@pytest.fixture(scope="module")
+def instrumented(zkdsa):
+    """One zkDSA proof in the fused-sponge wiring, with every kernel wrapper
+    replaced by a counting shim around its plain version and with ``timings``:
+    the calls per wrapper, the timings and the proof."""
+    calls, timings = {}, {}
 
     def shim(name, plain):
         def counted(*args, **kwargs):
@@ -201,18 +206,32 @@ def test_prove_goes_through_each_kernel_wrapper_once(zkdsa, monkeypatch):
 
         return counted
 
-    for module, wrapper, plain in KERNEL_WRAPPERS:
-        mod = importlib.import_module(f"intmax_zkp_core_tpu_torch.ops.{module}")
-        monkeypatch.setattr(mod, wrapper, shim(wrapper, getattr(mod, plain)))
-    proof = zkdsa["t"].prove(zkdsa["tpw"])
-    assert calls == {wrapper: 1 for _, wrapper, _ in KERNEL_WRAPPERS}
-    assert t_to_json(proof) == j_to_json(zkdsa["jproof"])
+    with pytest.MonkeyPatch.context() as mp:
+        for module, wrapper, plain in KERNEL_WRAPPERS:
+            mod = importlib.import_module(f"intmax_zkp_core_tpu_torch.ops.{module}")
+            mp.setattr(mod, wrapper, shim(wrapper, getattr(mod, plain)))
+        proof = tprover.prove(zkdsa["t"], zkdsa["tpw"], fused_sponge=True, timings=timings)
+    return {"calls": calls, "timings": timings, "proof": proof}
 
 
-def test_timings_split_quotient_and_fri_into_parts_that_add_up(zkdsa):
-    timings = {}
-    proof = tprover.prove(zkdsa["t"], zkdsa["tpw"], timings=timings)
-    assert t_to_json(proof) == t_to_json(zkdsa["tproof"])
+def test_prove_goes_through_each_kernel_wrapper_once(zkdsa, instrumented):
+    # prove reaches every wrapper through its module: the four of the
+    # permutation argument and the Poseidon-gate quotient exactly once per proof
+    once = {wrapper: 1 for _, wrapper, _ in KERNEL_WRAPPERS if wrapper != "ntt_cuda"}
+    assert {k: v for k, v in instrumented["calls"].items() if k != "ntt_cuda"} == once
+    assert t_to_json(instrumented["proof"]) == j_to_json(zkdsa["jproof"])
+
+
+def test_prove_goes_through_the_ntt_wrapper_at_every_ntt(instrumented):
+    # the intt and coset-LDE ntt of the wires' and the Z / partial-product
+    # commitments, the intt of quotient_finish, the quotient commitment's ntt
+    # and the two coset_ilde of the FRI final polynomial
+    assert instrumented["calls"]["ntt_cuda"] == 8
+
+
+def test_timings_split_quotient_and_fri_into_parts_that_add_up(zkdsa, instrumented):
+    timings = instrumented["timings"]
+    assert t_to_json(instrumented["proof"]) == t_to_json(zkdsa["tproof"])
     phases = ("tables", "witness", "commit_wires", "perm_columns", "quotient", "openings", "fri")
     parts = {
         "quotient": ("quotient_perm", "quotient_gates", "quotient_finish", "quotient_commit"),
@@ -221,6 +240,30 @@ def test_timings_split_quotient_and_fri_into_parts_that_add_up(zkdsa):
     assert set(timings) == set(phases) | {p for ps_ in parts.values() for p in ps_}
     for phase, names in parts.items():
         assert sum(timings[n] for n in names) == pytest.approx(timings[phase], abs=1e-9)
+
+
+def test_quotient_gates_equals_the_per_constraint_fold(zkdsa):
+    # the prove() path's quotient_gates (the Poseidon gate through its kernel's
+    # wrapper) against every gate through the plain per-constraint fold
+    pd, common = zkdsa["t"].prover, zkdsa["t"].common
+    cfg = common.config
+    lde_n, C = common.n * cfg.fri.blowup, cfg.num_challenges
+    assert "poseidon" in common.gate_ids
+    rng = np.random.default_rng(26)
+
+    def field(*shape):
+        return tgl.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64), "cpu")
+
+    wires_lde, pi_hash, alphas = field(cfg.num_wires, lde_n), field(4), field(C)
+    acc, apows = field(C, lde_n), field(C)
+    got = tprover.get_circuit_kernels(pd, "cpu")["quotient_gates"](wires_lde, pi_hash, alphas, acc, apows)
+    cs = tgl.from_u64(pd.cs_lde, "cpu")
+    const = cs[common.n_sel : common.n_sel + common.n_const_cols]
+    for gi, gate_id in enumerate(common.gate_ids):
+        if tprover.GATE_TYPES[gate_id].num_constraints:
+            fold = tprover._gate_quotient_chunk(gate_id, cfg.num_wires, common.n_const_cols, C)
+            acc, apows = fold(wires_lde, cs[gi], const, pi_hash, alphas, acc, apows)
+    assert torch.equal(got, acc)
 
 
 def test_conflicting_witness_is_refused(zkdsa):
