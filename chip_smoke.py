@@ -18,6 +18,13 @@ four of the permutation argument (permutation columns, permutation terms of
 the quotient, the divide by Z_H, the initial FRI quotient), the Poseidon
 gate's share of the quotient and the NTT.
 
+Two lines describe the kernels' code and where the device time of a proof
+goes: ``[sass]`` counts the SASS instructions, IMAD-class instructions,
+registers and stack bytes of every kernel of the library (``cuobjdump``),
+and ``[kernel-time]``, after one more chain proof of each sponge wiring
+under ``torch.profiler``, gives each kernel's device milliseconds and
+launches per proof.
+
 In the kernels line ``max_abs_err`` is the largest absolute difference
 between a kernel's output and its plain version's, taken on the int64 bit
 patterns in float64 over every shape compared; the script fails unless it
@@ -30,7 +37,10 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
+import re
+import shutil
 import os
 import subprocess
 import sys
@@ -61,10 +71,11 @@ MDS_LAYER_MADS = (12 * 12 + 1) * 2
 MADS_PER_PERMUTATION = (
     SBOXES * (2 * 3 + 2 * 4) + 8 * MDS_LAYER_MADS + 11 * 11 * 4 + 22 * (22 * 4 + 2)
 )
-# What the kernels' own algorithm spends: every S-box multiply as 4 partial
-# products and a dense MDS layer in each of the 30 rounds.  Reported beside
-# the bound, never as the bound.
-MADS_AS_COMPUTED = SBOXES * 4 * 4 + 30 * MDS_LAYER_MADS
+# What the kernels' own algorithm spends (csrc/poseidon.cu): the same form,
+# except that M00 of each partial round is multiplied as a full 64-bit
+# constant (4 partial products, not 2).  Reported beside the bound, never as
+# the bound.
+MADS_AS_COMPUTED = MADS_PER_PERMUTATION + 22 * 2
 
 
 def log(phase: str, **fields) -> None:
@@ -96,14 +107,72 @@ def toolchain_probe(nvcc: str) -> dict:
     return {"nvcc": "'" + release + "'", "triton": triton}
 
 
-def rand_field(rng, shape, device) -> torch.Tensor:
-    """Canonical field elements with lanes of 0 and p-1 mixed in."""
+def find_cuobjdump(nvcc: str) -> str | None:
+    """The toolkit's cuobjdump: on the PATH or beside nvcc."""
+    beside = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    return shutil.which("cuobjdump") or (beside if os.path.isfile(beside) else None)
+
+
+def kernel_name(symbol: str) -> str:
+    """The name of a kernel from its mangled symbol (``_Z14permute_kernelPKy...``
+    -> ``permute_kernel``); other symbols as they are."""
+    m = re.match(r"_Z(\d+)", symbol)
+    return symbol[m.end():m.end() + int(m.group(1))] if m else symbol
+
+
+def sass_counts(library: str, cuobjdump: str) -> dict:
+    """For each kernel in ``library``: SASS instructions (no NOP), the
+    IMAD-class ones among them (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not
+    IMAD.MOV, which is a move) with the .WIDE and .HI forms counted apart,
+    and the registers and stack bytes of ``cuobjdump -res-usage``."""
+    def run(flag):
+        return subprocess.run([cuobjdump, flag, library], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+
+    counts, c = {}, None
+    for line in run("-sass").splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            c = counts[kernel_name(fn.group(1))] = {
+                "instructions": 0, "imad": 0, "imad_wide": 0, "imad_hi": 0}
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if c is None or ins is None or ins.group(1) == "NOP":
+            continue
+        op = ins.group(1)
+        c["instructions"] += 1
+        if op.startswith("IMAD") and not op.startswith("IMAD.MOV"):
+            c["imad"] += 1
+            c["imad_wide"] += ".WIDE" in op
+            c["imad_hi"] += ".HI" in op
+    name = None
+    for line in run("-res-usage").splitlines():
+        fn = re.search(r"Function (\S+):", line)
+        if fn:
+            name = kernel_name(fn.group(1))
+            continue
+        use = re.search(r"REG:(\d+) STACK:(\d+)", line)
+        if name in counts and use:
+            counts[name].update(registers=int(use.group(1)), stack_bytes=int(use.group(2)))
+    return counts
+
+
+def rand_field(rng, shape, device, loose: bool = False) -> torch.Tensor:
+    """Canonical field elements with lanes of 0 and p-1 mixed in; with
+    ``loose``, a third of the lanes in [p, 2^64) instead, p and 2^64-1 among
+    them (u64 values that are not canonical, which the Poseidon kernels
+    take)."""
     from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
 
     a = rng.integers(0, P, size=shape, dtype=np.uint64)
     flat = a.reshape(-1)
     flat[:: 7] = 0
     flat[3 :: 11] = P - 1
+    if loose:
+        high = rng.integers(P, 1 << 64, size=flat.shape, dtype=np.uint64, endpoint=False)
+        flat[1 :: 3] = high[1 :: 3]
+        flat[1 :: 13] = P
+        flat[2 :: 17] = (1 << 64) - 1
     return gl.from_u64(a, device)
 
 
@@ -281,16 +350,20 @@ def phase_kernels(device, rng):
 
     worst = {"permute_cuda": 0, "hash_no_pad_cuda": 0}
     err = {"permute_cuda": 0.0, "hash_no_pad_cuda": 0.0}
-    for B in (1, 255, 256, 1 << 14, (1 << 18) + 3):
-        x = rand_field(rng, (B, 12), device)
+    # canonical inputs and inputs with lanes in [p, 2^64), at batch sizes
+    # that the kernels' block of 128 rows does and does not divide
+    for B, loose in itertools.product((1, 127, 255, 256, 1 << 14, (1 << 18) + 3), (False, True)):
+        x = rand_field(rng, (B, 12), device, loose)
         got, want = pc.permute_cuda(x), pc.permute_plain(x)
         bad = mismatches(got, want)
         worst["permute_cuda"] = max(worst["permute_cuda"], bad)
         err["permute_cuda"] = max(err["permute_cuda"], max_abs_err(got, want))
-        log("kernels", kernel="permute_cuda", plain="ops.poseidon.permute", B=B, mismatches=bad)
-    for width in (2, 5, 8, 12, 16, 24, 100, 135):
-        for B in (1, 1 << 18):
-            x = rand_field(rng, (B, width), device)
+        log("kernels", kernel="permute_cuda", plain="ops.poseidon.permute", B=B, loose=loose,
+            mismatches=bad)
+    # width 1 and 9: partial last chunks of one lane
+    for width in (1, 2, 5, 8, 9, 12, 16, 24, 100, 135):
+        for B, loose in ((1, True), (4099, True), (1 << 18, False), (1 << 18, True)):
+            x = rand_field(rng, (B, width), device, loose)
             want = pc.hash_no_pad_plain(x)
             got = pc.hash_no_pad_cuda(x)
             bad = mismatches(got, want)
@@ -307,7 +380,7 @@ def phase_kernels(device, rng):
             )
             err["permute_cuda"] = max(err["permute_cuda"], max_abs_err(got_c, want))
             log("kernels", kernel="hash_no_pad_cuda", plain="ops.poseidon.hash_no_pad",
-                width=width, B=B, mismatches=bad, mismatches_strided=bad_t,
+                width=width, B=B, loose=loose, mismatches=bad, mismatches_strided=bad_t,
                 mismatches_chained=bad_c)
     # the exact Python-int permutation on a few rows
     x = rand_field(rng, (4, 12), device)
@@ -763,6 +836,65 @@ def phase_chain_plain(circuit, seed, salt, proof):
         **{k: round(v, 4) for k, v in timings.items()})
 
 
+# The __global__ function behind each wrapper, by the name the profiler sees.
+KERNEL_SYMBOLS = {
+    "permute_kernel": "permute_cuda",
+    "hash_no_pad_kernel": "hash_no_pad_cuda",
+    "perm_columns_stage1_kernel": "perm_columns_cuda",
+    "perm_quotient_kernel": "perm_quotient_cuda",
+    "zinv_mul_kernel": "zinv_mul_cuda",
+    "fri_initial_kernel": "fri_initial_cuda",
+    "gate_quotient_kernel": "poseidon_gate_quotient_cuda",
+    "ntt_local_kernel": "ntt_cuda",
+}
+
+
+def _profiled_proof(circuit, seed, salt, fused: bool):
+    """One proof under torch.profiler (device activity only): device ms per
+    wrapper's kernel, profiler events per kernel, and the device ms of every
+    kernel of the proof (the port's and PyTorch's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        circuit.prove(seed, salt, fused_sponge=fused)
+        torch.cuda.synchronize()
+    ms, events, all_ms = {}, {}, 0.0
+    for ev in prof.key_averages():
+        us = ev.device_time_total
+        all_ms += us / 1e3
+        name = next((w for sym, w in KERNEL_SYMBOLS.items() if sym in ev.key), None)
+        if name:
+            ms[name] = ms.get(name, 0.0) + us / 1e3
+            events[name] = events.get(name, 0) + ev.count
+    return ms, events, all_ms
+
+
+def phase_kernel_time(circuit, seed, salt) -> dict:
+    """Device milliseconds per proof of each kernel: one more chain proof of
+    each wiring under torch.profiler, summed by kernel name, beside the
+    launches counted in that proof (the counts set to 0 just before it and
+    read just after).  Fails unless the profiler saw one event and some
+    device time for every launch, and no event of a kernel not launched."""
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+
+    per_proof = {}
+    for wiring, fused in (("chained", False), ("fused", True)):
+        pc.reset_launch_counts()
+        t0 = time.perf_counter()
+        ms, events, all_ms = _profiled_proof(circuit, seed, salt, fused)
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in pc.launch_counts().items() if n}
+        if events != launches:
+            raise RuntimeError(f"{wiring}: profiler events {events} != launches {launches}")
+        rows = {k: {"ms": round(ms[k], 4), "launches": n} for k, n in launches.items()}
+        if not all(row["ms"] > 0 for row in rows.values()):
+            raise RuntimeError(f"the profiler saw no device time for a launched kernel: {rows}")
+        per_proof[wiring] = rows
+        log("kernel-time", wiring=wiring, source="torch.profiler", prove_s=round(wall, 3),
+            device_ms_all_kernels=round(all_ms, 3), events_equal_launches=True, **rows)
+    return per_proof
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log-rows", type=int, default=15,
@@ -794,6 +926,11 @@ def main() -> int:
     cb.load()
     log("build", sources=[os.path.basename(src) for src in cb.sources()],
         nvcc_flags="'" + " ".join(cb.NVCC_FLAGS) + "'", seconds=round(build_seconds, 2))
+    cuobjdump = find_cuobjdump(pc.find_nvcc())
+    if cuobjdump is None:
+        log("sass", cuobjdump="absent")
+    else:
+        log("sass", library=os.path.relpath(cb.LIBRARY), **sass_counts(cb.LIBRARY, cuobjdump))
 
     # ---- 3. kernels against their plain versions ----
     rng = np.random.default_rng(20240917)
@@ -817,6 +954,7 @@ def main() -> int:
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
     phase_chain_plain(*chain)  # comparison only: after the counts were read
+    per_proof = phase_kernel_time(*chain[:3])
 
     # ---- 6. the record ----
     csrc, ref = "intmax_zkp_core_tpu_torch/csrc/", "intmax_zkp_core_tpu/ops/"
@@ -834,12 +972,15 @@ def main() -> int:
     kernels = []
     for name, source, replaces, timed in table:
         t = timing[timed]
+        wiring = "fused" if name == "hash_no_pad_cuda" else "chained"
         kernels.append(
             {"name": name, "route": "cuda", "source": csrc + source, "replaces": ref + replaces,
              "launches": main_counts[name], "max_abs_err": err[name],
              "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": t["bound_by"], "library_ms": None,
-             "bound_ms_as_computed": t["bound_ms_as_computed"], "shape": t["shape"]})
+             "bound_ms_as_computed": t["bound_ms_as_computed"], "shape": t["shape"],
+             "ms_per_proof": per_proof[wiring][name]["ms"],
+             "launches_per_proof": per_proof[wiring][name]["launches"]})
     log("done", seconds=round(time.perf_counter() - t_start, 1), log_rows=args.log_rows)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

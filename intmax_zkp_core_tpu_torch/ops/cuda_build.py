@@ -47,7 +47,7 @@ _VP, _LL, _CI, _ULL = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c
 # undeclared, ctypes would cut them to 32 bits); every launcher returns
 # cudaGetLastError().
 _ARGTYPES = {
-    "poseidon_set_constants": [_VP, _VP, _ULL],
+    "poseidon_set_constants": [_VP, _ULL, _VP, _VP, _VP],
     "poseidon_permute": [_VP, _VP, _LL, _VP],
     "poseidon_hash_no_pad": [_VP, _LL, _LL, _CI, _VP, _LL, _VP],
     "zinv_mul": [_VP, _VP, _VP, _LL, _LL, _VP],
@@ -152,6 +152,15 @@ def _stale() -> bool:
     )
 
 
+def bind(lib, names=_ARGTYPES) -> None:
+    """Declare the C signatures of ``names`` (entries of the library's
+    interface) on a loaded ``lib``."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _CI
+
+
 def load():
     """The loaded library (built first if needed), with argtypes set."""
     global _lib
@@ -160,10 +169,7 @@ def load():
     if _stale():
         build()
     lib = ctypes.CDLL(LIBRARY)
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _CI
+    bind(lib)
     lib.kernels_error_string.argtypes = [_CI]
     lib.kernels_error_string.restype = ctypes.c_char_p
     _lib = lib

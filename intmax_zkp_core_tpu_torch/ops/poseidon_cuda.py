@@ -12,15 +12,19 @@ Two kernels, both in ``csrc/poseidon.cu`` over ``csrc/goldilocks.cuh``:
   neighbouring threads read neighbouring addresses.
 
 Design: one thread per permutation, state in 64-bit registers, grid-stride
-loop, constants in ``__constant__`` memory; any batch size >= 1.
+loop; any batch size >= 1.  The state is loose between rounds (any u64
+standing for its residue mod p) and made canonical once per output lane;
+the next round's constants are folded into each full round's MDS reduction;
+the 22 partial rounds run in the sparse form of ``ops/poseidon_fast.py``.
+The tables sit in ``__constant__`` memory, uploaded once per device from
+``kernel_tables`` (built from the Python constants in the order the kernel
+reads them).  The sponge stages the next rate-8 chunk of its rows in shared
+memory while the current permutation runs.
 
 What bounds them on the card: a permutation moves 192 bytes but needs about
-6.4 thousand 32-bit integer multiply-adds even in the cheapest known
-formulation (the sparse partial rounds of ``ops/poseidon_fast.py``), so the
-integer pipe — not memory — is the limit.  These kernels use the dense
-formulation (118 S-boxes of four 64x64->128 multiplies, 30 MDS layers of 290
-small multiplies: about 10.6 thousand).  ``chip_smoke.py`` prints measured
-times beside the bound of the cheapest formulation.
+6.4 thousand 32-bit integer multiply-adds (the sparse form; 6,480 as the
+kernel computes them), so the integer pipe — not memory — is the limit.
+``chip_smoke.py`` prints measured times beside that bound.
 
 The plain PyTorch versions are ``permute`` and ``hash_no_pad`` of
 ``ops/poseidon.py`` (re-exported below as ``permute_plain`` /
@@ -55,9 +59,18 @@ from .poseidon import hash_n_to_m_no_pad as _hash_n_to_m_no_pad
 from .poseidon import permute as permute_plain
 from .poseidon_constants import (
     ALL_ROUND_CONSTANTS,
+    HALF_N_FULL_ROUNDS,
     MDS_MATRIX_CIRC,
     MDS_MATRIX_DIAG,
+    N_PARTIAL_ROUNDS,
     SPONGE_WIDTH,
+)
+from .poseidon_fast import (
+    FAST_PARTIAL_FIRST_RC,
+    FAST_PARTIAL_RC,
+    INIT_MATRIX,
+    M00,
+    SPARSE_ROUNDS,
 )
 
 _constants_on: set = set()  # device indices whose __constant__ tables are filled
@@ -69,19 +82,56 @@ def hash_no_pad_plain(inputs: torch.Tensor) -> torch.Tensor:
     return _hash_n_to_m_no_pad(inputs, 4, permutation=permute_plain)
 
 
+def kernel_tables() -> dict:
+    """The constant tables of ``csrc/poseidon.cu``, flat, in the order the
+    kernel reads them:
+
+    * ``full_rc`` [2, 5, 12]: for each half of the full rounds, the constants
+      added to the state on entry, then the constants folded into the MDS
+      reduction of each of its four rounds — the next round's, except after
+      the last round of a half: ``FAST_PARTIAL_FIRST_RC`` before the partial
+      rounds, nothing (zeros) before the output;
+    * ``init`` [11, 11]: ``INIT_MATRIX`` on lanes 1..11 (it is the identity
+      on lane 0);
+    * ``sparse`` [22, 24]: for partial round i, ``FAST_PARTIAL_RC[i]``,
+      ``M00``, ``w_hat`` (11) and ``v`` (11) of ``SPARSE_ROUNDS[i]``.
+    """
+    T, h = SPONGE_WIDTH, HALF_N_FULL_ROUNDS
+    rc = [ALL_ROUND_CONSTANTS[r * T : (r + 1) * T] for r in range(2 * h + N_PARTIAL_ROUNDS)]
+    first, second = rc[:h], rc[h + N_PARTIAL_ROUNDS :]
+    full = first + [list(FAST_PARTIAL_FIRST_RC)] + second + [[0] * T]
+    assert INIT_MATRIX[0] == [1] + [0] * (T - 1)
+    assert all(row[0] == 0 for row in INIT_MATRIX[1:])
+    sparse = []
+    for i, (w_hat, v) in enumerate(SPARSE_ROUNDS):
+        sparse += [FAST_PARTIAL_RC[i], M00, *w_hat, *v]
+    return {
+        "full_rc": [c for row in full for c in row],
+        "init": [c for row in INIT_MATRIX[1:] for c in row[1:]],
+        "sparse": sparse,
+    }
+
+
+def set_constants(lib) -> int:
+    """Fill the ``__constant__`` tables of ``lib``'s Poseidon kernels on the
+    current device: the 12 circulant MDS entries (the shared header's table)
+    and the one diagonal entry, then ``kernel_tables``' full_rc, init and
+    sparse.  Returns the code of ``poseidon_set_constants``."""
+    assert not any(MDS_MATRIX_DIAG[1:]), "kernel assumes a single diagonal entry"
+    tables = kernel_tables()
+    circ, full_rc, init, sparse = [
+        (ctypes.c_ulonglong * len(v))(*v)
+        for v in (MDS_MATRIX_CIRC, tables["full_rc"], tables["init"], tables["sparse"])]
+    return lib.poseidon_set_constants(circ, MDS_MATRIX_DIAG[0], full_rc, init, sparse)
+
+
 def _ready(device: torch.device) -> None:
     """Library loaded and its ``__constant__`` tables filled on ``device``."""
     lib = load()
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _constants_on:
-        rc = (ctypes.c_ulonglong * len(ALL_ROUND_CONSTANTS))(*ALL_ROUND_CONSTANTS)
-        circ = (ctypes.c_ulonglong * SPONGE_WIDTH)(*MDS_MATRIX_CIRC)
-        assert not any(MDS_MATRIX_DIAG[1:]), "kernel assumes a single diagonal entry"
         with torch.cuda.device(index):
-            code = lib.poseidon_set_constants(
-                ctypes.cast(rc, ctypes.c_void_p), ctypes.cast(circ, ctypes.c_void_p),
-                MDS_MATRIX_DIAG[0],
-            )
+            code = set_constants(lib)
         cb.check(code, "poseidon_set_constants")
         _constants_on.add(index)
 

@@ -32,17 +32,25 @@ def card():
     return torch.device("cuda")
 
 
-def _rand(seed, shape, device):
-    a = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+def _rand(seed, shape, device, loose=False):
+    """Canonical lanes with 0 and p - 1 mixed in; with ``loose``, every third
+    lane in [p, 2^64), p and 2^64 - 1 among them."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, P, size=shape, dtype=np.uint64)
     a.reshape(-1)[::7] = 0
     a.reshape(-1)[3::11] = P - 1
+    if loose:
+        a.reshape(-1)[1::3] = rng.integers(P, 1 << 64, size=a.size, dtype=np.uint64)[1::3]
+        a.reshape(-1)[1::13] = P
+        a.reshape(-1)[2::17] = (1 << 64) - 1
     return gl.from_u64(a, device)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("loose", [False, True])
 @pytest.mark.parametrize("rows", [1, 255, 4099])
-def test_permute_cuda_equals_plain(card, rows):
-    x = _rand(rows, (rows, 12), card)
+def test_permute_cuda_equals_plain(card, rows, loose):
+    x = _rand(rows, (rows, 12), card, loose)
     before = pc.launch_counts()["permute_cuda"]
     got = pc.permute_cuda(x)
     assert pc.launch_counts()["permute_cuda"] == before + 1
@@ -50,9 +58,10 @@ def test_permute_cuda_equals_plain(card, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [2, 8, 15, 135])
-def test_hash_no_pad_cuda_equals_plain(card, width):
-    x = _rand(width, (1030, width), card)
+@pytest.mark.parametrize("loose", [False, True])
+@pytest.mark.parametrize("width", [1, 2, 8, 9, 15, 135])
+def test_hash_no_pad_cuda_equals_plain(card, width, loose):
+    x = _rand(width, (1030, width), card, loose)
     want = pc.hash_no_pad_plain(x)
     before = pc.launch_counts()["hash_no_pad_cuda"]
     assert torch.equal(pc.hash_no_pad_cuda(x), want)
