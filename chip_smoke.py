@@ -115,9 +115,18 @@ def find_cuobjdump(nvcc: str) -> str | None:
 
 def kernel_name(symbol: str) -> str:
     """The name of a kernel from its mangled symbol (``_Z14permute_kernelPKy...``
-    -> ``permute_kernel``); other symbols as they are."""
+    -> ``permute_kernel``; a template's integer arguments kept,
+    ``_Z16ntt_local_kernelILi9ELb0ELb0EEv...`` -> ``ntt_local_kernel<9,0,0>``); other
+    symbols as they are."""
     m = re.match(r"_Z(\d+)", symbol)
-    return symbol[m.end():m.end() + int(m.group(1))] if m else symbol
+    if not m:
+        return symbol
+    end = m.end() + int(m.group(1))
+    args = re.match(r"I((?:L[a-z]-?\d+E)+)E", symbol[end:])
+    if args:
+        values = re.findall(r"L[a-z](-?\d+)E", args.group(1))
+        return f"{symbol[m.end():end]}<{','.join(values)}>"
+    return symbol[m.end():end]
 
 
 def sass_counts(library: str, cuobjdump: str) -> dict:
@@ -289,29 +298,38 @@ def gate_quotient_bound(K: int, C: int, L: int) -> dict:
     of small constants (two limb products per entry), the table products of
     PARTIAL_A / PARTIAL_B (a coefficient below 2^32 as 2 multiply-adds, else
     4), the swap square and four delta multiplies, and 123 C fold and C
-    selector multiplies.  As computed every table product and S-box multiply
-    is a full one."""
+    selector multiplies.  As computed (``csrc/gate_quotient.cu``) every table
+    product is a full one (the dense rows, a GlDot term each)."""
     from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
 
     W, n_cs = gqc.GATE.NUM_WIRES_USED, gqc.N_CS
-    coef = gqc.affine_tables()[3]
+    coef = [c for row in gqc.affine_tables()[1] for c in row if c]
     small = sum(1 for c in coef if c < (1 << 32))
     n_bytes = (K * W * L + L + 2 * K * C * L) * 8 + 4 * K * C * 8
     common = 7 * MDS_LAYER_MADS + SQR + 4 * MUL + (n_cs * C + C) * MUL
     mads = SBOXES * (2 * SQR + 2 * MUL) + small * 2 + (len(coef) - small) * MUL + common
-    as_computed = SBOXES * 4 * MUL + len(coef) * MUL + common
+    as_computed = SBOXES * (2 * SQR + 2 * MUL) + len(coef) * MUL + common
     return bound(n_bytes, K * L * mads, K * L * as_computed)
 
 
-def ntt_bound(B: int, n: int) -> dict:
+def ntt_bound(B: int, n: int, inverse: bool) -> dict:
     """K2: [B, n] read once and written once; (n/2) log2 n twiddle multiplies
-    per row.  As computed the four-step moves the rows twice and adds a
-    twiddle multiply per point (n > 2^11), the small transform a scale
-    multiply per point of the inverse."""
+    per row.  As computed (``csrc/ntt.cu``) the four-step moves the rows
+    twice; each local transform of 2^M points spends, per 8 points, 0, 0, 2
+    or 5 products in a first pass of 0 to 3 stages and 12 in each later pass
+    (7 twiddles, 5 inside the stages); the four-step adds its twiddle per
+    point, the one-launch inverse its scale."""
+    from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
+
     log_n = n.bit_length() - 1
     mads = B * (n // 2) * log_n * MUL
-    passes = 1 if log_n <= 11 else 2
-    return bound(2 * B * n * 8, mads, mads + B * n * MUL, 2 * passes * B * n * 8)
+    halves = [log_n] if log_n <= nc.LOCAL_LOG_MAX else [log_n // 2, log_n - log_n // 2]
+    per_8 = 0
+    for log_len in halves:
+        first, *later = nc.passes_for(log_len)
+        per_8 += (0, 0, 2, 5)[first] + 12 * len(later)
+    per_8 += 8 if len(halves) == 2 or inverse else 0
+    return bound(2 * B * n * 8, mads, B * n * per_8 // 8 * MUL, 2 * len(halves) * B * n * 8)
 
 
 def proof_sha256(proof) -> str:
@@ -579,12 +597,48 @@ def gate_quotient_inputs(rng, device, K, C, L, extra_rows=0):
             rand_field(rng, (K, C), device)]
 
 
+EDGE_LANES = (0, 1, (1 << 32) - 1, 1 << 32, 1 << 63, P - 1)
+
+
+def edge_field(rng, shape, device) -> torch.Tensor:
+    """Canonical field elements whose first lanes, and a run in every 97 *
+    6, hold 0, 1, 2^32 - 1, 2^32, 2^63 and p - 1 in turn."""
+    from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
+
+    a = rng.integers(0, P, size=shape, dtype=np.uint64)
+    flat = a.reshape(-1)
+    for i, v in enumerate(EDGE_LANES):
+        flat[i :: 97 * len(EDGE_LANES)] = v
+        flat[i * 97 + 1 :: 97 * len(EDGE_LANES)] = v
+    return gl.from_u64(a, device)
+
+
+def all_canonical(x: torch.Tensor) -> bool:
+    """Every lane of an int64 bit-pattern tensor below p: as signed int64,
+    u < 2^63 is u >= 0 and p <= u < 2^64 is -2^32 < x < 0."""
+    return bool(((x >= 0) | (x <= -(1 << 32))).all().item())
+
+
+def ntt_chain_shapes(log_rows):
+    """The NTTs of one proof of 2^log_rows rows at the standard recursion
+    config, by name: (rows, length, inverse) - the wires' intt and coset LDE's
+    ntt, the Z / partial products' (2 challenges x 12 chunks), the
+    quotient's intt of its 2 challenges and the ntt of its 16 chunks."""
+    n, L = 1 << log_rows, 1 << (log_rows + 3)
+    return {"ntt_cuda_intt_wires": (135, n, True), "ntt_cuda": (135, L, False),
+            "ntt_cuda_intt_zs": (24, n, True), "ntt_cuda_zs": (24, L, False),
+            "ntt_cuda_intt_quotient": (2, L, True), "ntt_cuda_quotient": (16, L, False)}
+
+
 def phase_gate_ntt_kernels(device, rng, log_rows):
     """K4 and K2 against their plain versions on the card.  K4 at K in {1, 3},
     C = 2, 64 / 2^14 / the main path's LDE points, the wire matrix with its
     135 rows at K = 1 and with two more at K = 3; K2 at every length 2^0 ..
     2^22 at B = 1 and at B = 135 with the main path's lengths, both
-    directions, and the round trip through the public entry points."""
+    directions, and the round trip through the public entry points.  Then
+    both on edge-lane inputs (0, 1, 2^32 - 1, 2^32, 2^63, p - 1): K4 at
+    C = 1 .. 4 over a number of points no block divides, K2 at every shape of
+    a chain proof; every output lane must be below p."""
     from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
     from intmax_zkp_core_tpu_torch.ops import ntt as nt
     from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
@@ -594,6 +648,8 @@ def phase_gate_ntt_kernels(device, rng, log_rows):
 
     def hold(kernel, got, want, **fields):
         bad = sum(mismatches(g, w) for g, w in zip(got, want))
+        if not all(all_canonical(g) for g in got):
+            raise RuntimeError(f"{kernel} wrote a lane not below p: {fields}")
         worst[kernel] = max(worst[kernel], bad)
         err[kernel] = max([err[kernel]] + [max_abs_err(g, w) for g, w in zip(got, want)])
         log("kernels", kernel=kernel, **fields, mismatches=bad)
@@ -606,6 +662,15 @@ def phase_gate_ntt_kernels(device, rng, log_rows):
                  gqc.poseidon_gate_quotient_plain(*args), plain="poseidon_gate_quotient_plain",
                  K=K, C=C, L=L, wire_rows=args[0].shape[1])
             del args
+    for C in (1, 2, 3, 4):
+        L = (1 << 14) + 100
+        args = [edge_field(rng, (2, 135, L), device), edge_field(rng, (L,), device),
+                edge_field(rng, (2, C), device), edge_field(rng, (2, C, L), device),
+                edge_field(rng, (2, C), device)]
+        hold("poseidon_gate_quotient_cuda", gqc.poseidon_gate_quotient_cuda(*args),
+             gqc.poseidon_gate_quotient_plain(*args), plain="poseidon_gate_quotient_plain",
+             K=2, C=C, L=L, inputs="edge lanes")
+        del args
     shapes = [(1, log_n) for log_n in range(nc.MAX_LOG_N + 1)]
     shapes += [(135, log_rows), (135, log_rows + 3)]
     for B, log_n in shapes:
@@ -616,6 +681,11 @@ def phase_gate_ntt_kernels(device, rng, log_rows):
         if log_n in (1, 11, 12, log_rows, log_rows + 3, nc.MAX_LOG_N):
             back = nt.intt(nt.ntt(x))
             hold("ntt_cuda", [back], [x], against="intt(ntt(x)) == x", B=B, n=1 << log_n)
+        del x
+    for name, (B, n, inverse) in ntt_chain_shapes(log_rows).items():
+        x = edge_field(rng, (B, n), device)
+        hold("ntt_cuda", [nc.ntt_cuda(x, inverse)], [nc.ntt_plain(x, inverse)],
+             plain="ops.ntt._ntt_impl", B=B, n=n, inverse=inverse, inputs="edge lanes")
         del x
     try:
         nc.ntt_cuda(torch.zeros((1, 2 << nc.MAX_LOG_N), dtype=torch.int64, device=device))
@@ -631,13 +701,13 @@ def phase_gate_ntt_kernels(device, rng, log_rows):
 
 def phase_gate_ntt_timings(device, rng, log_rows):
     """K4 and K2 at the shapes a proof of 2^log_rows rows gives them: K4 over
-    the 135 wire rows of the LDE with C = 2, K2 as the wires' intt [135, n]
-    and their coset LDE's ntt [135, 8 n].  The plain versions are timed once
-    (the plain K4 at 2^18 points is some hundreds of launches)."""
+    the 135 wire rows of the LDE with C = 2, K2 at each of the proof's NTT
+    shapes (``ntt_chain_shapes``).  The plain versions are timed once or
+    twice (the plain K4 at 2^18 points is some hundreds of launches)."""
     from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
     from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
 
-    n, L, C = 1 << log_rows, 1 << (log_rows + 3), 2
+    L, C = 1 << (log_rows + 3), 2
     flush = torch.empty(64 << 20, dtype=torch.int64, device=device)  # 512 MB
     out = {}
     args = gate_quotient_inputs(rng, device, 1, C, L)
@@ -648,15 +718,14 @@ def phase_gate_ntt_timings(device, rng, log_rows):
         **gate_quotient_bound(1, C, L)}
     log("timing", kernel="poseidon_gate_quotient_cuda", **out["poseidon_gate_quotient_cuda"])
     del args
-    for name, (rows, length, inverse) in (("ntt_cuda_intt_wires", (135, n, True)),
-                                          ("ntt_cuda", (135, L, False))):
+    for name, (rows, length, inverse) in ntt_chain_shapes(log_rows).items():
         x = rand_field(rng, (rows, length), device)
         out[name] = {
             "shape": [rows, length], "inverse": inverse, "launches_per_call": nc.launches_for(length),
             "ms": time_ms(lambda: nc.ntt_cuda(x, inverse), 10, flush),
             "plain_ms": time_ms(lambda: nc.ntt_plain(x, inverse), 2, flush),
-            **ntt_bound(rows, length)}
-        log("timing", kernel="ntt_cuda", **out[name])
+            **ntt_bound(rows, length, inverse)}
+        log("timing", kernel="ntt_cuda", name=name, **out[name])
         del x
     del flush
     return out

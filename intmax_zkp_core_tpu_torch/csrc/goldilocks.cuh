@@ -74,7 +74,8 @@ __device__ __forceinline__ u64 gl_sqn(u64 x, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// Loose arithmetic for the Poseidon hot loop (poseidon.cu).  A loose value is
+// Loose arithmetic for the hot loops of poseidon.cu, ntt.cu and
+// gate_quotient.cu.  A loose value is
 // any u64 and stands for its residue mod p: it may lie in [p, 2^64).  The
 // functions below take loose inputs, return loose results and never compute
 // a general 64x64 multiply for a reduction; gl_canon makes a loose value
@@ -82,6 +83,7 @@ __device__ __forceinline__ u64 gl_sqn(u64 x, int n) {
 // from a compare.  Each inline-PTX sequence sits alone in one small
 // function.  The functions above stay as they are: they mirror the
 // plain PyTorch version formula by formula and the other kernels use them.
+// Where a function's bound needs a canonical operand, its comment says so.
 // ---------------------------------------------------------------------------
 
 typedef unsigned int u32;
@@ -298,6 +300,26 @@ __device__ __forceinline__ u64 gl_add_loose(u64 a, u64 c) {
         "sub.u32 k, 0, k;\n\t"
         "add.cc.u32 a0, a0, k;\n\t"
         "addc.u32 a1, a1, 0;\n\t"
+        "mov.b64 %0, {a0, a1};\n\t"
+        "}"
+        : "=l"(x)
+        : "l"(a), "l"(c));
+    return x;
+}
+
+// a - c for a loose a and a canonical c: a borrow takes 2^32 - 1 off, which
+// cannot borrow again (a - c + 2^64 >= 2^64 - c > 2^32 - 1).
+__device__ __forceinline__ u64 gl_sub_loose(u64 a, u64 c) {
+    u64 x;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, c0, c1, k;\n\t"
+        "mov.b64 {a0, a1}, %1;\n\t"
+        "mov.b64 {c0, c1}, %2;\n\t"
+        "sub.cc.u32 a0, a0, c0;\n\t"
+        "subc.cc.u32 a1, a1, c1;\n\t"
+        "subc.u32 k, 0, 0;\n\t"
+        "sub.cc.u32 a0, a0, k;\n\t"
+        "subc.u32 a1, a1, 0;\n\t"
         "mov.b64 %0, {a0, a1};\n\t"
         "}"
         : "=l"(x)

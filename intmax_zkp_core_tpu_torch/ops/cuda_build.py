@@ -56,10 +56,10 @@ _ARGTYPES = {
                       _CI, _CI, _CI, _CI, _LL, _LL, _VP],
     "perm_columns_stage1": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                             _CI, _CI, _CI, _CI, _LL, _VP],
-    "gate_quotient_set_constants": [_VP, _VP, _ULL, _VP, _VP, _VP, _VP, _VP, _CI],
+    "gate_quotient_set_constants": [_VP, _VP, _ULL, _VP, _VP, _VP],
     "gate_quotient": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _LL, _VP],
-    "ntt_local": [_VP, _VP, _CI, _CI, _LL, _CI, _LL, _LL, _LL, _LL, _LL, _VP, _VP, _LL, _LL,
-                  _ULL, _CI, _VP],
+    "ntt_local": [_VP, _VP, _CI, _CI, _CI, _CI, _LL, _CI, _CI, _CI, _VP, _VP, _CI, _ULL, _CI,
+                  _ULL, _ULL, _ULL, _VP],
 }
 
 _lib = None

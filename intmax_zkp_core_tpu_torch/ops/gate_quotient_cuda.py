@@ -12,11 +12,11 @@ acc [K, C, L], apows [K, C])`` -> ``(acc' [K, C, L], apows' [K, C])``.
 Replaces the JAX package's ``ops/gate_quotient_pallas.py::
 poseidon_gate_quotient_pallas`` and its ``_batched`` form (K = 1 is the
 single-proof form).  The kernel (``csrc/gate_quotient.cu``) runs one thread
-per (proof, point): all 123 constraints in registers, each folded into the C
-running sums as soon as it exists.  Its constants (round constants, MDS, the
+per (proof, point): all 123 constraints on loose values, each folded into
+the C sums as soon as it exists, every sum (the C folds, each table row)
+kept unreduced and reduced once.  Its constants (round constants, MDS, the
 gate's wire layout and the affine tables ``PARTIAL_A`` / ``PARTIAL_B`` as
-sparse (basis index, coefficient) lists) are uploaded once from the port's
-own Python constants.
+dense rows) are uploaded once from the port's own Python constants.
 
 The plain version is ``poseidon_gate_quotient_plain``:
 ``PoseidonGate.eval_constraints_batched`` and the per-constraint fold of the
@@ -53,51 +53,49 @@ _constants_on: set = set()  # device indices whose __constant__ tables are fille
 
 def affine_tables():
     """The rows of ``PARTIAL_A`` then ``PARTIAL_B`` as the kernel stores them:
-    (constant terms, row starts, basis indices, coefficients), basis
-    [Y_0..Y_11, x_0..x_21].  Row i of ``PARTIAL_A`` reads x_j for j < i only,
-    and zero coefficients are left out, as in ``eval_constraints_batched``."""
+    (constant terms [34], coefficients [34][34]) over the basis
+    [Y_0..Y_11, x_0..x_21], dense.  Row i of ``PARTIAL_A`` reads x_j for
+    j < i only, so its coefficients beyond 12 + i are zero, as
+    ``eval_constraints_batched`` reads them."""
     T, P = SPONGE_WIDTH, gl.P_INT
-    consts, starts, index, coef = [], [0], [], []
+    basis = T + N_PARTIAL_ROUNDS
+    consts, coef = [], []
     rows = [(row, i) for i, row in enumerate(PARTIAL_A)] + [(row, N_PARTIAL_ROUNDS) for row in PARTIAL_B]
     for row, n_x in rows:
         consts.append(row[0] % P)
-        for j in list(range(T)) + [T + j for j in range(n_x)]:
-            if row[1 + j] % P:
-                index.append(j)
-                coef.append(row[1 + j] % P)
-        starts.append(len(index))
-    return consts, starts, index, coef
+        coef.append([row[1 + j] % P for j in range(T + n_x)] + [0] * (basis - T - n_x))
+    return consts, coef
+
+
+def set_constants(lib) -> int:
+    """Fill the ``__constant__`` tables of ``lib``'s gate kernel on the
+    current device: the round constants and MDS entries, the gate's wire
+    layout and ``affine_tables``.  Returns the code of
+    ``gate_quotient_set_constants``."""
+    if (N_CS, SPONGE_WIDTH, N_PARTIAL_ROUNDS, len(ALL_ROUND_CONSTANTS)) != (123, 12, 22, 360):
+        raise RuntimeError("gate_quotient.cu is written for the 123-constraint Poseidon-12 gate")
+    if any(MDS_MATRIX_DIAG[1:]):
+        raise RuntimeError("gate_quotient.cu assumes a single diagonal MDS entry")
+    consts, coef = affine_tables()
+
+    def u64s(values):
+        return (ctypes.c_ulonglong * len(values))(*values)
+
+    layout = (ctypes.c_longlong * len(_LAYOUT))(*[getattr(PoseidonGate, name) for name in _LAYOUT])
+    return lib.gate_quotient_set_constants(
+        u64s(ALL_ROUND_CONSTANTS), u64s(MDS_MATRIX_CIRC), MDS_MATRIX_DIAG[0], layout, u64s(consts),
+        u64s([c for row in coef for c in row]))
 
 
 def _ready(device: torch.device) -> None:
     """Library loaded and the kernel's ``__constant__`` tables filled on ``device``."""
     lib = cb.load()
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index in _constants_on:
-        return
-    if (N_CS, SPONGE_WIDTH, N_PARTIAL_ROUNDS, len(ALL_ROUND_CONSTANTS)) != (123, 12, 22, 360):
-        raise RuntimeError("gate_quotient.cu is written for the 123-constraint Poseidon-12 gate")
-    if any(MDS_MATRIX_DIAG[1:]):
-        raise RuntimeError("gate_quotient.cu assumes a single diagonal MDS entry")
-    consts, starts, tab_index, coef = affine_tables()
-
-    def u64s(values):
-        return (ctypes.c_ulonglong * max(len(values), 1))(*values)
-
-    def i64s(values):
-        return (ctypes.c_longlong * max(len(values), 1))(*values)
-
-    arrays = [
-        u64s(ALL_ROUND_CONSTANTS), u64s(MDS_MATRIX_CIRC),
-        i64s([getattr(PoseidonGate, name) for name in _LAYOUT]),
-        u64s(consts), i64s(starts), i64s(tab_index), u64s(coef),
-    ]
-    ptrs = [ctypes.cast(a, ctypes.c_void_p) for a in arrays]
-    with torch.cuda.device(index):
-        code = lib.gate_quotient_set_constants(
-            ptrs[0], ptrs[1], MDS_MATRIX_DIAG[0], *ptrs[2:], len(tab_index))
-    cb.check(code, "gate_quotient_set_constants")
-    _constants_on.add(index)
+    if index not in _constants_on:
+        with torch.cuda.device(index):
+            code = set_constants(lib)
+        cb.check(code, "gate_quotient_set_constants")
+        _constants_on.add(index)
 
 
 def poseidon_gate_quotient_plain(wires_lde, sel_col, alphas, acc, apows):

@@ -170,6 +170,52 @@ def test_ntt_cuda_equals_plain(card, B, log_n, inverse):
     assert torch.equal(got, nc.ntt_plain(x, inverse))
 
 
+EDGE_LANES = [0, 1, (1 << 32) - 1, 1 << 32, 1 << 63, P - 1]
+
+
+def _edge(seed, shape, device):
+    """Canonical lanes, the first ones and every 97th holding 0, 1,
+    2^32 - 1, 2^32, 2^63 and p - 1 in turn."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, P, size=shape, dtype=np.uint64)
+    flat = a.reshape(-1)
+    for i, v in enumerate(EDGE_LANES):
+        flat[i::97 * len(EDGE_LANES)] = v
+        flat[i * 97 + 1::97 * len(EDGE_LANES)] = v
+    return gl.from_u64(a, device)
+
+
+def _canonical(x):
+    return bool((gl.to_u64(x.cpu()) < P).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [0, 2, 3, 5, 9, 11, 15, 18],
+                         ids=lambda m: f"2^{m}")  # R < 8, one pass, 2 / 3 / 4 passes, four-step
+@pytest.mark.parametrize("B", [1, 24, 135])
+def test_ntt_cuda_launch_plan_regimes_on_edge_lanes(card, B, log_n):
+    x = _edge(60 + log_n + B, (B, 1 << log_n), card)
+    for inverse in (False, True):
+        before = pc.launch_counts()["ntt_cuda"]
+        got = nc.ntt_cuda(x, inverse)
+        assert pc.launch_counts()["ntt_cuda"] == before + nc.launches_for(1 << log_n)
+        assert torch.equal(got, nc.ntt_plain(x, inverse)) and _canonical(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 4])
+def test_poseidon_gate_quotient_cuda_every_challenge_count(card, C):
+    K, L = 2, 1000  # L not a multiple of the kernel's block of points
+    args = [_edge(70, (K, 135, L), card), _edge(71, (L,), card), _edge(72, (K, C), card),
+            _edge(73, (K, C, L), card), _edge(74, (K, C), card)]
+    before = pc.launch_counts()["poseidon_gate_quotient_cuda"]
+    acc, apows = gqc.poseidon_gate_quotient_cuda(*args)
+    assert pc.launch_counts()["poseidon_gate_quotient_cuda"] == before + 1
+    want_acc, want_apows = gqc.poseidon_gate_quotient_plain(*args)
+    assert torch.equal(acc, want_acc) and torch.equal(apows, want_apows)
+    assert _canonical(acc) and _canonical(apows)
+
+
 @pytest.mark.cuda
 def test_ntt_and_gate_wrappers_never_take_the_plain_path_for_a_cuda_tensor(card):
     x = _rand(50, (8, 64), card)
