@@ -251,16 +251,29 @@ INV_BATCHED = 3 * MUL
 
 
 def perm_columns_bound(K: int, C: int, R: int, n: int) -> dict:
-    """K3 stage 1: wires, id and sigma tables read once (not once per
-    challenge), f_pref, g_pref_inv and row_quot written once."""
+    """K3, the whole function: wires, id and sigma read once (not once per
+    challenge), z, pp and wrap written once.  Per point and challenge: two
+    factor multiplies per wire, the chunk products, the prefix products of
+    the f- and g-chunks, the suffix products G_suff[j+1], two multiplies for
+    each q_j and one for the row quotient, one for the running product, and
+    z * q_j.  As computed (``csrc/perm_columns.cu``) the running product is
+    pass A's block scan (five warp steps, the products of up to three warps'
+    totals before the thread, of all four and the exclusive one) and pass C's
+    carry multiply, the inverse a Fermat chain, and the kernels move more:
+    each challenge's threads load the wires, id and sigma (the L2 cache
+    serves the second challenge at the main path's shape), F_pref and the g
+    chunks are parked in device memory and read back, and z and the q_j go
+    through device memory between passes A and C."""
     nch = (R + 6) // 7
-    n_bytes = (K * R + 2 * R) * n * 8 + K * C * 2 * nch * n * 8 + 2 * K * C * 8
-    # two factor multiplies per wire, chunk products, prefix and suffix
-    # products, the row quotient and the scaling of the nch-1 suffixes
-    muls = 2 * R + 2 * (R - nch) + 2 * (nch - 1) + 1 + (nch - 1)
+    n_bytes = (K * R + 2 * R) * n * 8 + K * C * nch * n * 8 + K * C * 8
+    common = (2 * R + 2 * (R - nch) + 2 * (nch - 1) + max(nch - 2, 0) + 2 * (nch - 1) + 1
+              + (nch - 1))
     points = K * C * n
-    return bound(n_bytes, points * (muls * MUL + INV_BATCHED),
-                 points * ((muls + 2 * (7 * nch - R)) * MUL + INV_AS_COMPUTED))
+    # per point and challenge: 3 R loads; parks 2 nch - 3 written and read
+    # back, q_j and z written by pass A, read and written again by pass C
+    moved = points * 8 * (3 * R + 2 * (2 * nch - 3) + 3 * nch) + K * C * 8
+    return bound(n_bytes, points * ((common + 1) * MUL + INV_BATCHED),
+                 points * ((common + 5 + 3 + 4 + 1 + 1) * MUL + INV_AS_COMPUTED), moved)
 
 
 def perm_quotient_bound(K: int, C: int, R: int, L: int) -> dict:
@@ -352,13 +365,13 @@ def expect_rejected(circuit, proof) -> None:
     raise RuntimeError("a tampered proof was accepted")
 
 
-def expect_once_per_proof(before: dict, after: dict, what: str) -> None:
-    """One proof launches each kernel of the permutation argument and the
-    Poseidon-gate kernel once."""
-    for name in ONCE_PER_PROOF:
-        if after[name] - before[name] != 1:
+def expect_per_proof(before: dict, after: dict, what: str) -> None:
+    """One proof calls each kernel of the permutation argument and the
+    Poseidon-gate kernel once (``launches_per_proof``)."""
+    for name, want in launches_per_proof().items():
+        if after[name] - before[name] != want:
             raise RuntimeError(
-                f"the {what} proof launched {name} {after[name] - before[name]} times, not once")
+                f"the {what} proof launched {name} {after[name] - before[name]} times, not {want}")
 
 
 def phase_kernels(device, rng):
@@ -452,7 +465,18 @@ def phase_timings(device, rng):
 
 
 NEW_KERNELS = ("perm_columns_cuda", "perm_quotient_cuda", "zinv_mul_cuda", "fri_initial_cuda")
-ONCE_PER_PROOF = NEW_KERNELS + ("poseidon_gate_quotient_cuda",)
+CALLED_ONCE_PER_PROOF = NEW_KERNELS + ("poseidon_gate_quotient_cuda",)
+
+
+def launches_per_proof() -> dict:
+    """The launches one proof makes of each kernel of the permutation
+    argument and of the Poseidon-gate kernel: one call each, K3's call in
+    ``LAUNCHES_PER_CALL`` launches."""
+    from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
+
+    want = dict.fromkeys(CALLED_ONCE_PER_PROOF, 1)
+    want["perm_columns_cuda"] = pcol.LAUNCHES_PER_CALL
+    return want
 
 
 def perm_columns_inputs(rng, device, K, C, R, n, extra_rows=0):
@@ -461,13 +485,32 @@ def perm_columns_inputs(rng, device, K, C, R, n, extra_rows=0):
             rand_field(rng, (R, n), device)]
 
 
-def perm_quotient_inputs(rng, device, K, C, R, L, extra_rows=0):
+def perm_columns_edge_inputs(rng, device, K, C, R, n):
+    """K3's wires, id and sigma on edge lanes (``edge_field``; betas and
+    gammas random and not 0), with one g-factor of challenge 0 of proof 0 set
+    to 0 at a few points, so that its g total is 0 there and only there;
+    returns the inputs and those points."""
+    from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
+
+    nonzero = lambda: gl.from_u64(rng.integers(1, P, size=(K, C), dtype=np.uint64), device)  # noqa: E731
+    args = [edge_field(rng, (K, R, n), device), nonzero(), nonzero(),
+            edge_field(rng, (R, n), device), edge_field(rng, (R, n), device)]
+    wires, betas, gammas, sigma = (gl.to_u64(a.cpu()) for a in (args[0], args[1], args[2], args[4]))
+    beta, gamma = int(betas[0, 0]), int(gammas[0, 0])
+    zero_at = [7, n // 2, n - 1]
+    for t in zero_at:
+        wires[0, R - 1, t] = (-(beta * int(sigma[R - 1, t]) + gamma)) % P
+    args[0] = gl.from_u64(wires, device)
+    return args, zero_at
+
+
+def perm_quotient_inputs(rng, device, K, C, R, L, extra_rows=0, edge=False):
     nch = (R + 6) // 7
-    return [rand_field(rng, (K, R + extra_rows, L), device), rand_field(rng, (K, C, L), device),
-            rand_field(rng, (K, C, nch - 1, L), device), rand_field(rng, (K, C), device),
-            rand_field(rng, (K, C), device), rand_field(rng, (K, C), device),
-            rand_field(rng, (R, L), device), rand_field(rng, (L,), device),
-            rand_field(rng, (L,), device), rand_field(rng, (R,), device)]
+    field = (lambda shape: edge_field(rng, shape, device)) if edge else (  # noqa: E731
+        lambda shape: rand_field(rng, shape, device))
+    return [field((K, R + extra_rows, L)), field((K, C, L)), field((K, C, nch - 1, L)),
+            field((K, C)), field((K, C)), field((K, C)), field((R, L)), field((L,)),
+            field((L,)), field((R,))]
 
 
 def fri_initial_inputs(rng, device, K, L):
@@ -486,11 +529,14 @@ def phase_perm_kernels(device, rng, log_rows):
     from intmax_zkp_core_tpu_torch.ops import zinv_mul_cuda as zm
 
     n_main, L_main, odd, blowup, C = 1 << log_rows, 1 << (log_rows + 3), (1 << 12) + 8, 8, 2
+    big = (1 << 20) + 8
     worst = dict.fromkeys(NEW_KERNELS, 0)
     err = dict.fromkeys(NEW_KERNELS, 0.0)
 
     def hold(kernel, got, want, **fields):
         bad = sum(mismatches(g, w) for g, w in zip(got, want))
+        if not all(all_canonical(g) for g in got):
+            raise RuntimeError(f"{kernel} wrote a lane not below p: {fields}")
         worst[kernel] = max(worst[kernel], bad)
         err[kernel] = max([err[kernel]] + [max_abs_err(g, w) for g, w in zip(got, want) if g.numel()])
         log("kernels", kernel=kernel, **fields, mismatches=bad)
@@ -517,16 +563,33 @@ def phase_perm_kernels(device, rng, log_rows):
             hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
                  plain="fri_initial_plain", K=K, L=L)
 
-    # K3 at every size; K5 at every R up to the odd size and, at the main
-    # path's L, at the main path's R only (its plain version takes seconds
-    # there).  K5 itself takes any L: the shift by `blowup` wraps modulo L.
-    for n in (8, odd, n_main):
-        for R in (3, 7, 8, 23, 80):
-            for K in (1, 3):
+    # K3, the whole function, at every size; at 2^20 + 8 points pass B
+    # carries between more block totals than one of its scan steps holds;
+    # then C = 1, 3, 4 and 5 and edge lanes with a zero g total.  K5 at every R
+    # up to the odd size and, at the main path's L, at the main path's R only
+    # (its plain version takes seconds there), then C = 1 - 4 on edge lanes
+    # and C = 5.  K5 itself takes any L: the shift by `blowup` wraps modulo L.
+    for n in (8, odd, n_main, big):
+        for R in (3, 7, 8, 23, 80) if n != big else (80,):
+            for K in (1, 3) if n != big else (1,):
                 args = perm_columns_inputs(rng, device, K, C, R, n, extra_rows=K - 1)
-                hold("perm_columns_cuda", pcol.stage1_cuda(*args) + pcol.perm_columns_cuda(*args),
-                     pcol.stage1_plain(*args) + pcol.perm_columns_plain(*args),
-                     plain="stage1_plain+perm_columns_plain", K=K, R=R, n=n)
+                hold("perm_columns_cuda", pcol.perm_columns_cuda(*args),
+                     pcol.perm_columns_plain(*args), plain="perm_columns_plain", K=K, C=C, R=R, n=n)
+                del args
+    for C_ in (1, 3, 4, 5):
+        args = perm_columns_inputs(rng, device, 2, C_, 23, odd, extra_rows=1)
+        hold("perm_columns_cuda", pcol.perm_columns_cuda(*args), pcol.perm_columns_plain(*args),
+             plain="perm_columns_plain", K=2, C=C_, R=23, n=odd)
+    for R in (5, 80):
+        args, zero_at = perm_columns_edge_inputs(rng, device, 2, C, R, odd)
+        got = pcol.perm_columns_cuda(*args)
+        hold("perm_columns_cuda", got, pcol.perm_columns_plain(*args),
+             plain="perm_columns_plain", K=2, C=C, R=R, n=odd, inputs="edge lanes",
+             zero_g_total_at=zero_at)
+        z, first = got[0], zero_at[0]
+        if not (bool((z[0, 0, first + 1 :] == 0).all()) and bool((z[0, 0, : first + 1] != 0).all())
+                and bool((z[0, 1] != 0).all())):
+            raise RuntimeError("a zero g total did not zero Z from the next point on, alone")
     for L, Rs in ((8, (3, 7, 8, 23, 80)), (odd, (3, 7, 8, 23, 80)), (L_main, (80,))):
         for R in Rs:
             for K in (1, 3):
@@ -537,6 +600,12 @@ def phase_perm_kernels(device, rng, log_rows):
                      pq.perm_quotient_plain(*args, blowup),
                      plain="perm_quotient_plain", K=K, R=R, L=L, wire_rows=R + extra)
                 del args
+    for C_, edge in ((1, True), (2, True), (3, True), (4, True), (5, False)):
+        args = perm_quotient_inputs(rng, device, 2, C_, 80, odd, extra_rows=2, edge=edge)
+        hold("perm_quotient_cuda", pq.perm_quotient_cuda(*args, blowup),
+             pq.perm_quotient_plain(*args, blowup), plain="perm_quotient_plain", K=2, C=C_, R=80,
+             L=odd, inputs="edge lanes" if edge else "random")
+        del args
     torch.cuda.synchronize()
     if any(worst.values()) or any(err.values()):
         raise RuntimeError(f"kernel disagrees with its plain version: {worst} {err}")
@@ -562,15 +631,8 @@ def phase_perm_timings(device, rng, log_rows):
         log("timing", kernel=name, **out[name])
 
     args = perm_columns_inputs(rng, device, 1, C, R, n)
-    record("perm_columns_cuda", [1, R, n], lambda: pcol.stage1_cuda(*args),
-           lambda: pcol.stage1_plain(*args), perm_columns_bound(1, C, R, n))
-    # the whole function, plain tail included, beside the kernel stage alone
-    out["perm_columns_cuda"]["with_tail_ms"] = time_ms(lambda: pcol.perm_columns_cuda(*args), 5, flush)
-    out["perm_columns_cuda"]["plain_with_tail_ms"] = time_ms(
-        lambda: pcol.perm_columns_plain(*args), 2, flush)
-    log("timing", kernel="perm_columns_cuda", tail="running product, Z, pp (plain PyTorch)",
-        with_tail_ms=out["perm_columns_cuda"]["with_tail_ms"],
-        plain_with_tail_ms=out["perm_columns_cuda"]["plain_with_tail_ms"])
+    record("perm_columns_cuda", [1, R, n], lambda: pcol.perm_columns_cuda(*args),
+           lambda: pcol.perm_columns_plain(*args), perm_columns_bound(1, C, R, n))
 
     args = perm_quotient_inputs(rng, device, 1, C, R, L, extra_rows=55)  # all 135 wire rows
     record("perm_quotient_cuda", [1, C, L], lambda: pq.perm_quotient_cuda(*args, blowup),
@@ -770,7 +832,7 @@ def phase_zkdsa(device, golden_path):
     c2 = pc.launch_counts()
     if c2["permute_cuda"] - c1["permute_cuda"] <= 0:
         raise RuntimeError("the zkDSA proof launched no permute_cuda kernel")
-    expect_once_per_proof(c1, c2, "zkDSA")
+    expect_per_proof(c1, c2, "zkDSA")
     expect_ntt_launches(c1, c2, circuit.data.common, "zkDSA")
     circuit.verify(proof)
     t3 = time.perf_counter()
@@ -836,7 +898,7 @@ def phase_chain(device, log_rows):
     log("chain-phases", **{k: round(v, 4) for k, v in timings.items()})
     expect_parts_add_up(timings)
     after_chained = pc.launch_counts()
-    expect_once_per_proof(after_build, after_chained, "chain (chained wiring)")
+    expect_per_proof(after_build, after_chained, "chain (chained wiring)")
     expect_ntt_launches(after_build, after_chained, circuit.data.common, "chain (chained wiring)")
 
     # the same proof through the fused-sponge wiring
@@ -845,7 +907,7 @@ def phase_chain(device, log_rows):
     proof_fused = circuit.prove(seed, salt, fused_sponge=True, timings=fused_timings)
     t1 = time.perf_counter()
     after_fused = pc.launch_counts()
-    expect_once_per_proof(after_chained, after_fused, "chain (fused wiring)")
+    expect_per_proof(after_chained, after_fused, "chain (fused wiring)")
     expect_ntt_launches(after_chained, after_fused, circuit.data.common, "chain (fused wiring)")
     log("chain-launches-per-proof",
         chained_wiring={k: after_chained[k] - after_build[k] for k in after_build},
@@ -909,7 +971,9 @@ def phase_chain_plain(circuit, seed, salt, proof):
 KERNEL_SYMBOLS = {
     "permute_kernel": "permute_cuda",
     "hash_no_pad_kernel": "hash_no_pad_cuda",
-    "perm_columns_stage1_kernel": "perm_columns_cuda",
+    "perm_columns_rows_kernel": "perm_columns_cuda",
+    "perm_columns_carries_kernel": "perm_columns_cuda",
+    "perm_columns_finish_kernel": "perm_columns_cuda",
     "perm_quotient_kernel": "perm_quotient_cuda",
     "zinv_mul_kernel": "zinv_mul_cuda",
     "fri_initial_kernel": "fri_initial_cuda",

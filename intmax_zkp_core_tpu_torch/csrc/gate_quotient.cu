@@ -78,13 +78,6 @@ __device__ __forceinline__ void fold(GlDot (&comb)[C], const u64* tbl, int j, u6
     for (int c = 0; c < C; ++c) comb[c].mac(tbl[c * (N_CS + 1) + j], v);
 }
 
-__device__ __forceinline__ u64 reduce(const GlDot& d) {
-    u32 top;
-    u64 hi, lo;
-    d.hi_lo(top, hi, lo);
-    return gl_reduce160_loose(top, hi, lo);
-}
-
 // Table row r over Y (registers) and the first n_x of the x_i (shared
 // memory, entry i at x[i * THREADS]): loose.
 __device__ __forceinline__ u64 table_row(int r, const u64 (&y)[T], const u64* x, int n_x) {
@@ -94,7 +87,7 @@ __device__ __forceinline__ u64 table_row(int r, const u64 (&y)[T], const u64* x,
     for (int i = 0; i < T; ++i) d.mac(y[i], coef[i]);
 #pragma unroll 2
     for (int i = 0; i < n_x; ++i) d.mac(x[i * THREADS], coef[T + i]);
-    return gl_add_loose(reduce(d), c_tab_const[r]);
+    return gl_add_loose(gl_dot_reduce(d), c_tab_const[r]);
 }
 
 // s <- MDS * sbox(s + rc[rnd]) on all twelve lanes, loose in and out.
@@ -211,7 +204,7 @@ gate_quotient_kernel(const u64* __restrict__ wires, long long wires_k_stride,
     const u64 sv = sel[t];
 #pragma unroll
     for (int c = 0; c < C; ++c)
-        out[(k * C + c) * L + t] = gl_add(acc[(k * C + c) * L + t], gl_mul(reduce(comb[c]), sv));
+        out[(k * C + c) * L + t] = gl_add(acc[(k * C + c) * L + t], gl_mul(gl_dot_reduce(comb[c]), sv));
 }
 
 template <int C>

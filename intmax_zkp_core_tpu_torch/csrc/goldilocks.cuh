@@ -74,8 +74,8 @@ __device__ __forceinline__ u64 gl_sqn(u64 x, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// Loose arithmetic for the hot loops of poseidon.cu, ntt.cu and
-// gate_quotient.cu.  A loose value is
+// Loose arithmetic for the hot loops of poseidon.cu, ntt.cu,
+// gate_quotient.cu, perm_columns.cu and perm_quotient.cu.  A loose value is
 // any u64 and stands for its residue mod p: it may lie in [p, 2^64).  The
 // functions below take loose inputs, return loose results and never compute
 // a general 64x64 multiply for a reduction; gl_canon makes a loose value
@@ -256,6 +256,14 @@ __device__ __forceinline__ u64 gl_reduce160_loose(u32 top, u64 hi, u64 lo) {
     return x;
 }
 
+// A GlDot's sum reduced once, to a loose value.
+__device__ __forceinline__ u64 gl_dot_reduce(const GlDot& d) {
+    u32 top;
+    u64 hi, lo;
+    d.hi_lo(top, hi, lo);
+    return gl_reduce160_loose(top, hi, lo);
+}
+
 // acc_lo + acc_hi * 2^32 + c -> loose, for acc_lo, acc_hi < 2^62 and any c:
 // the 96-bit sum n2 * 2^64 + n, then n + n2 (2^32 - 1) with its carry k
 // folded back as k (2^32 - 1).
@@ -336,6 +344,13 @@ __device__ __forceinline__ u64 gl_mul_loose(u64 a, u64 b) {
 __device__ __forceinline__ u64 gl_sqr_loose(u64 a) {
     u64 hi, lo;
     gl_sqr128(a, hi, lo);
+    return gl_reduce128_loose(hi, lo);
+}
+
+// a * b + c -> loose, for any u64 a, b, c: one carry chain, one reduction.
+__device__ __forceinline__ u64 gl_mul_add_loose(u64 a, u64 b, u64 c) {
+    u64 hi, lo;
+    gl_mul_add128(a, b, c, hi, lo);
     return gl_reduce128_loose(hi, lo);
 }
 

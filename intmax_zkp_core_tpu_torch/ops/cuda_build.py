@@ -30,7 +30,7 @@ LIBRARY = os.path.join(BUILD_DIR, "libkernels.so")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
-# One key per kernel.
+# One key per kernel wrapper; a wrapper of several launches counts each.
 LAUNCHES = {
     "permute_cuda": 0,
     "hash_no_pad_cuda": 0,
@@ -54,8 +54,11 @@ _ARGTYPES = {
     "fri_initial": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP],
     "perm_quotient": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _CI, _CI, _CI, _CI, _LL, _LL, _VP],
-    "perm_columns_stage1": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                            _CI, _CI, _CI, _CI, _LL, _VP],
+    "perm_columns_row_block": [],
+    "perm_columns_rows": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                          _CI, _CI, _CI, _CI, _LL, _LL, _VP],
+    "perm_columns_carries": [_VP, _VP, _CI, _CI, _LL, _VP],
+    "perm_columns_finish": [_VP, _VP, _VP, _CI, _CI, _CI, _LL, _LL, _VP],
     "gate_quotient_set_constants": [_VP, _VP, _ULL, _VP, _VP, _VP],
     "gate_quotient": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _LL, _VP],
     "ntt_local": [_VP, _VP, _CI, _CI, _CI, _CI, _LL, _CI, _CI, _CI, _VP, _VP, _CI, _ULL, _CI,

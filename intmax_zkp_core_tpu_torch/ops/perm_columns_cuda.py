@@ -1,25 +1,28 @@
-"""The permutation-argument columns (Z and the chunk partial products), with
-their elementwise stage as a hand-written CUDA kernel and its plain PyTorch
-version.
+"""The permutation-argument columns (Z and the chunk partial products), as
+hand-written CUDA kernels with their plain PyTorch version.
 
-``perm_columns_cuda(wires, betas, gammas, id_vals, sigma)`` -> ``(z [K, C, n],
-pp [K, C, nch-1, n], wrap [K, C])``; ``wrap`` is the product over all rows and
-must be 1 for a consistent sigma.  Replaces the JAX package's
-``ops/perm_columns_pallas.py::perm_columns_pallas_batched``.
+``perm_columns_cuda(wires, betas, gammas, id_vals, sigma)`` -> ``(z [K, C,
+n], pp [K, C, nch-1, n], wrap [K, C])``; ``wrap`` is the product over all rows
+and must be 1 for a consistent sigma.  Replaces the JAX package's
+``ops/perm_columns_pallas.py::perm_columns_pallas_batched``: its Pallas
+kernel (the elementwise stage) and its XLA tail (the running product of the
+row quotients along n, Z and the partial products).
 
-As there, the work has two stages.  Stage 1 is elementwise along n and is the
-kernel (``csrc/perm_columns.cu``, one thread per (proof, challenge, row
-point)): the factors ``w_i + beta*id_i + gamma`` and ``w_i + beta*sigma_i +
-gamma``, their products over chunks of 7 wires, prefix products of the
-f-chunks, suffix products of the g-chunks and ONE Fermat inverse of the g
-total, which gives ``1 / G_pref[j] = G_suff[j+1] / G_total``.  The tail
-(``_finish``) is the running product of the row quotients along n — it crosses
-every tile — plus Z and the partial products; it is outside the Pallas kernel
-in the JAX package and is plain PyTorch here.
+For CUDA tensors the whole function is ``csrc/perm_columns.cu``, in
+``LAUNCHES_PER_CALL`` launches and no PyTorch operation between them: pass A,
+one thread per (proof, challenge, row point), forms the factors
+``w_i + beta*id_i + gamma`` and ``w_i + beta*sigma_i + gamma`` and their
+products over chunks of 7 wires in one walk, takes ONE Fermat inverse of the
+g total, forms the partial-product quotients ``F_pref[j] / G_pref[j] =
+F_pref[j] * G_suff[j+1] / G_total`` walking back, and each block's product
+scan of the row quotients; pass B scans the blocks' totals
+per (proof, challenge), which gives each block's carry and ``wrap``; pass C
+makes Z and the partial products.
 
-The plain versions are ``stage1_plain`` and ``perm_columns_plain``.  A wrapper
-takes them only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises.
+The plain versions are ``stage1_plain`` (the elementwise stage) and
+``perm_columns_plain`` (stage 1 and the log-step running product
+``_finish``).  The wrapper takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ import torch
 from . import cuda_build as cb
 from . import goldilocks as gl
 from .perm_quotient_cuda import CHUNK, n_chunks
+
+# Launches per call for CUDA tensors: passes A, B and C.
+LAUNCHES_PER_CALL = 3
 
 
 def _cumprod(x: torch.Tensor) -> torch.Tensor:
@@ -43,7 +49,7 @@ def _cumprod(x: torch.Tensor) -> torch.Tensor:
 
 
 def stage1_plain(wires, betas, gammas, id_vals, sigma):
-    """Plain PyTorch version of ``stage1_cuda``, on whatever device: wires
+    """The elementwise stage of ``perm_columns_plain``, on whatever device: wires
     [K, >= R, n] (the first R rows are read), betas, gammas [K, C], id_vals,
     sigma [R, n] -> (f_pref [K, C, nch, n], g_pref_inv [K, C, nch-1, n],
     row_quot [K, C, n])."""
@@ -93,10 +99,28 @@ def stage1_plain(wires, betas, gammas, id_vals, sigma):
             row_quot.reshape(K, C, n))
 
 
-def stage1_cuda(wires, betas, gammas, id_vals, sigma):
-    """Shapes as ``stage1_plain``, int64 bit patterns; ``wires`` may be a view
+def _finish(f_pref, g_pref_inv, row_quot):
+    """The plain version's tail: running product over the row axis, Z and the
+    partial products -> (z [K, C, n], pp [K, C, nch-1, n], wrap [K, C])."""
+    cum = _cumprod(row_quot)
+    z = torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]], dim=-1)
+    # nch == 1 (R <= CHUNK): both factors are empty and so is pp
+    pp = gl.mul(z[:, :, None, :], gl.mul(f_pref[:, :, :-1], g_pref_inv))
+    return z, pp, cum[..., -1]
+
+
+def perm_columns_plain(wires, betas, gammas, id_vals, sigma):
+    """Plain PyTorch version of ``perm_columns_cuda``, on whatever device."""
+    return _finish(*stage1_plain(wires, betas, gammas, id_vals, sigma))
+
+
+def perm_columns_cuda(wires, betas, gammas, id_vals, sigma):
+    """wires [K, >= R, n] (the first R rows are read), betas, gammas [K, C],
+    id_vals, sigma [R, n] -> (z [K, C, n], pp [K, C, nch-1, n], wrap [K, C]),
+    int64 bit patterns of canonical field elements; ``wires`` may be a view
     with any row and proof strides (its last axis contiguous).  CUDA tensors:
-    one launch (or an exception).  CPU tensors: the plain version."""
+    ``LAUNCHES_PER_CALL`` launches (or an exception).  CPU tensors: the plain
+    version."""
     name = "perm_columns_cuda"
     cb.require_field(name, wires=wires, betas=betas, gammas=gammas, id_vals=id_vals, sigma=sigma)
     if wires.dim() != 3 or betas.dim() != 2 or id_vals.dim() != 2:
@@ -120,39 +144,24 @@ def stage1_cuda(wires, betas, gammas, id_vals, sigma):
         )
     cb.require_same_device(name, wires, betas=betas, gammas=gammas, id_vals=id_vals, sigma=sigma)
     if not wires.is_cuda:
-        return stage1_plain(wires, betas, gammas, id_vals, sigma)
+        return perm_columns_plain(wires, betas, gammas, id_vals, sigma)
     cb.require_contiguous(name, betas=betas, gammas=gammas, id_vals=id_vals, sigma=sigma)
     if n > 1 and wires.stride(2) != 1:
         raise ValueError(f"{name} wants the last axis of wires contiguous")
-    f_pref = torch.empty((K, C, nch, n), dtype=torch.int64, device=wires.device)
-    g_pref_inv = torch.empty((K, C, nch - 1, n), dtype=torch.int64, device=wires.device)
-    row_quot = torch.empty((K, C, n), dtype=torch.int64, device=wires.device)
-    if row_quot.numel() == 0:
-        return f_pref, g_pref_inv, row_quot
-    cb.launch(name, "perm_columns_stage1", wires.device,
+    if K * C * n == 0:
+        raise ValueError(f"{name} wants at least one proof, challenge and point, got {(K, C, n)}")
+    dev = wires.device
+    z = torch.empty((K, C, n), dtype=torch.int64, device=dev)
+    pp = torch.empty((K, C, nch - 1, n), dtype=torch.int64, device=dev)
+    wrap = torch.empty((K, C), dtype=torch.int64, device=dev)
+    nb = -(-n // cb.load().perm_columns_row_block())  # blocks of points; the product is carried between them
+    totals = torch.empty((K, C, nb), dtype=torch.int64, device=dev)  # block products, then carries
+    g_mid = torch.empty((K, C, max(nch - 2, 0), n), dtype=torch.int64, device=dev)  # pass A's scratch
+    cb.launch(name, "perm_columns_rows", dev,
               wires.data_ptr(), wires.stride(0), wires.stride(1), id_vals.data_ptr(),
-              sigma.data_ptr(), betas.data_ptr(), gammas.data_ptr(), f_pref.data_ptr(),
-              g_pref_inv.data_ptr(), row_quot.data_ptr(), K, C, R, nch, n)
-    return f_pref, g_pref_inv, row_quot
-
-
-def _finish(f_pref, g_pref_inv, row_quot):
-    """The tail shared by both versions: running product over the row axis, Z
-    and the partial products -> (z [K, C, n], pp [K, C, nch-1, n], wrap [K, C])."""
-    cum = _cumprod(row_quot)
-    z = torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]], dim=-1)
-    # nch == 1 (R <= CHUNK): both factors are empty and so is pp
-    pp = gl.mul(z[:, :, None, :], gl.mul(f_pref[:, :, :-1], g_pref_inv))
-    return z, pp, cum[..., -1]
-
-
-def perm_columns_plain(wires, betas, gammas, id_vals, sigma):
-    """Plain PyTorch version of ``perm_columns_cuda``, on whatever device."""
-    return _finish(*stage1_plain(wires, betas, gammas, id_vals, sigma))
-
-
-def perm_columns_cuda(wires, betas, gammas, id_vals, sigma):
-    """wires [K, >= R, n], betas, gammas [K, C], id_vals, sigma [R, n] ->
-    (z [K, C, n], pp [K, C, nch-1, n], wrap [K, C]).  Stage 1 through
-    ``stage1_cuda`` (the kernel for CUDA tensors), then the plain tail."""
-    return _finish(*stage1_cuda(wires, betas, gammas, id_vals, sigma))
+              sigma.data_ptr(), betas.data_ptr(), gammas.data_ptr(), z.data_ptr(), pp.data_ptr(),
+              g_mid.data_ptr(), totals.data_ptr(), K, C, R, nch, n, nb)
+    cb.launch(name, "perm_columns_carries", dev, totals.data_ptr(), wrap.data_ptr(), K, C, nb)
+    cb.launch(name, "perm_columns_finish", dev, z.data_ptr(), pp.data_ptr(), totals.data_ptr(),
+              K, C, nch, n, nb)
+    return z, pp, wrap

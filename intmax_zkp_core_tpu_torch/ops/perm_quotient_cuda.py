@@ -13,10 +13,12 @@ with prev/next running through Z, the partial products and Z(x * omega).
 sigma_lde, xs, l0, k_is, blowup)`` -> ``(acc [K, C, L], apows [K, C])``.
 Replaces the JAX package's
 ``ops/perm_quotient_pallas.py::perm_quotient_pallas_batched``.  The kernel
-(``csrc/perm_quotient.cu``) runs one thread per (proof, challenge, point);
-each block makes the small tables (the alpha powers, the ``beta * k_i``) for
-itself, and ``acc = sum_k alpha^k * term_k`` equals the plain version's left
-fold because the arithmetic is exact.
+(``csrc/perm_quotient.cu``) runs one thread per (proof, point) and all
+challenges (for C <= 4; one challenge per thread for any other C), so each
+wire and sigma value is loaded once; each block makes the small tables (the
+alpha powers, the ``beta * k_i``) for itself, and each challenge's ``acc =
+sum_k alpha^k * term_k`` is one unreduced sum of products, reduced once,
+which equals the plain version's left fold because the arithmetic is exact.
 
 The plain version is ``perm_quotient_plain``.  The wrapper takes it only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -31,7 +33,6 @@ from . import goldilocks as gl
 
 # wires per partial product (keeps the constraint degree at 8)
 CHUNK = 7
-
 
 
 def n_chunks(num_routed: int) -> int:
@@ -81,7 +82,8 @@ def perm_quotient_plain(wires_lde, zs_lde, pps_lde, betas, gammas, alphas,
 
 def perm_quotient_cuda(wires_lde, zs_lde, pps_lde, betas, gammas, alphas,
                        sigma_lde, xs, l0, k_is, blowup: int):
-    """Shapes as ``perm_quotient_plain``, int64 bit patterns.  ``wires_lde``
+    """Shapes as ``perm_quotient_plain``, int64 bit patterns of canonical
+    field elements.  ``wires_lde``
     may carry more rows than are routed and may be a view with any row and
     proof strides (its last axis contiguous).  CUDA tensors: one launch (or
     an exception).  CPU tensors: the plain version."""

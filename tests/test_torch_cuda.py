@@ -99,9 +99,10 @@ def test_fri_initial_cuda_equals_plain(card, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3, 5])  # 5: above the kernel's template, no limit
 @pytest.mark.parametrize("R", [3, 8, 80])
-def test_perm_quotient_cuda_equals_plain(card, R):
-    K, C, L, nch = 2, 2, 1032, pq.n_chunks(R)
+def test_perm_quotient_cuda_equals_plain(card, R, C):
+    K, L, nch = 2, 1032, pq.n_chunks(R)
     args = [_rand(10, (K, R + 5, L), card), _rand(11, (K, C, L), card),
             _rand(12, (K, C, nch - 1, L), card)]
     args += [_rand(13 + i, (K, C), card) for i in range(3)]
@@ -115,17 +116,17 @@ def test_perm_quotient_cuda_equals_plain(card, R):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [3, 8, 80])
-def test_perm_columns_cuda_equals_plain(card, R):
-    K, C, n = 2, 2, 1032
+@pytest.mark.parametrize("R,n,C", [(3, 1032, 2), (8, 1032, 2), (80, 1032, 2), (80, 1032, 5),
+                                   (80, 40000, 2)])  # 40000: more block totals than one scan step
+def test_perm_columns_cuda_equals_plain(card, R, n, C):
+    K = 2
     args = [_rand(20, (K, R + 5, n), card), _rand(21, (K, C), card), _rand(22, (K, C), card),
             _rand(23, (R, n), card), _rand(24, (R, n), card)]
     before = pc.launch_counts()["perm_columns_cuda"]
-    got = pcol.stage1_cuda(*args) + pcol.perm_columns_cuda(*args)
-    assert pc.launch_counts()["perm_columns_cuda"] == before + 2
-    want = pcol.stage1_plain(*args) + pcol.perm_columns_plain(*args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    got = pcol.perm_columns_cuda(*args)
+    assert pc.launch_counts()["perm_columns_cuda"] == before + pcol.LAUNCHES_PER_CALL == before + 3
+    for a, b in zip(got, pcol.perm_columns_plain(*args)):
+        assert torch.equal(a, b) and _canonical(a)
 
 
 @pytest.mark.cuda

@@ -119,3 +119,89 @@ def test_inv_square_and_multiply_equals_the_addition_chain():
     assert [int(v) for v in got[:3]] == [0, 1, P - 1]
     for a, b in zip(x[3:19], got[3:19]):
         assert int(a) * int(b) % P == 1
+
+
+# The kernel's order (csrc/perm_quotient.cu) in Python ints: one "thread"
+# per (proof, point) with all challenges, the loose fused factors and chunk
+# products of goldilocks.cuh and perm_chunk.cuh (every value asserted below 2^64 by the
+# helpers), and each challenge's alpha fold as ONE unreduced sum of products
+# (asserted below 2^160 with a top word below 2^32), reduced once.
+from test_torch_gate_quotient import _add, _canon, _reduce128, _reduce_dot, _sub  # noqa: E402
+
+EDGE_LANES = (0, 1, (1 << 32) - 1, 1 << 32, 1 << 63, P - 1)
+
+
+def _mul(a, b):  # gl_mul_loose / gl_sqr_loose
+    assert 0 <= a < 1 << 64 and 0 <= b < 1 << 64
+    return _reduce128(a * b)
+
+
+def _chain(facs):  # perm_chunk.cuh::chunk_product: left to right, loose
+    p = facs[0]
+    for u in facs[1:]:
+        p = _mul(p, u)
+    return p
+
+
+def _replay_point(d, k, t, blowup):
+    """perm_quotient_kernel<C> at proof k, point t -> (acc [C], apows [C])."""
+    K, C, L = d["zs_lde"].shape
+    R = d["sigma_lde"].shape[0]
+    nch = (R + 6) // 7
+    v = lambda name, *idx: int(d[name][idx])  # noqa: E731
+    x, l0 = v("xs", t), v("l0", t)
+    accs, apows = [], []
+    for c in range(C):  # the block's tables: the left fold of alpha, beta * k_i
+        beta, gamma, alpha = v("betas", k, c), v("gammas", k, c), v("alphas", k, c)
+        apow = [1]
+        for _ in range(nch + 1):
+            apow.append(apow[-1] * alpha % P)
+        apows.append(apow.pop())
+        bk = [beta * v("k_is", i) % P for i in range(R)]
+        prev = v("zs_lde", k, c, t)
+        terms = [(l0, _sub(prev, 1))]  # alpha^0 = 1
+        for j in range(nch):  # fused multiply-adds, w_i + gamma shared by f_i and g_i
+            rows = range(7 * j, min(7 * j + 7, R))
+            wg = [_add(v("wires_lde", k, i, t), gamma) for i in rows]
+            f = _chain([_reduce128(bk[i] * x + u) for i, u in zip(rows, wg)])
+            g = _chain([_reduce128(beta * v("sigma_lde", i, t) + u) for i, u in zip(rows, wg)])
+            nxt = v("zs_lde", k, c, (t + blowup) % L) if j == nch - 1 else v("pps_lde", k, c, j, t)
+            terms.append((apow[j + 1], _sub(_mul(nxt, g), _canon(_mul(prev, f)))))
+            prev = nxt
+        accs.append(_canon(_reduce_dot(terms)))
+    return accs, apows
+
+
+def _edge(d, seed):
+    """The inputs with their lanes run through 0, 1, 2^32 - 1, 2^32, 2^63 and
+    p - 1."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, a in d.items():
+        a = a.copy()
+        flat = a.reshape(-1)
+        for i, v in enumerate(EDGE_LANES):
+            flat[int(rng.integers(0, 5)) + i :: 7 * len(EDGE_LANES)] = v
+        out[name] = a
+    return out
+
+
+@pytest.mark.parametrize("C_,R", [(1, 23), (2, 80), (3, 5)])
+def test_kernel_order_replayed_in_python_ints(C_, R):
+    # K = 2 proofs, all C challenges per point, on edge lanes; the points
+    # include the last ones, whose Z(x * omega) wraps around
+    d = _edge(_inputs(R, K=2, seed=50 + C_), 51 + C_)
+    d["zs_lde"], d["pps_lde"] = d["zs_lde"][:, :1].repeat(C_, 1), d["pps_lde"][:, :1].repeat(C_, 1)
+    for c in range(1, C_):  # distinct challenges
+        d["zs_lde"][:, c] = np.roll(d["zs_lde"][:, c], c, axis=-1)
+        d["pps_lde"][:, c] = np.roll(d["pps_lde"][:, c], c, axis=-1)
+    rng = np.random.default_rng(52 + C_)
+    for name in ("betas", "gammas", "alphas"):
+        d[name] = rng.integers(0, P, size=(2, C_), dtype=np.uint64)
+    acc, apows = (gl.to_u64(a) for a in pq.perm_quotient_plain(**_t(d), blowup=BLOWUP))
+    for k in range(2):
+        for t in (0, 1, 17, L - BLOWUP, L - 1):
+            got_acc, got_apows = _replay_point(d, k, t, BLOWUP)
+            assert got_acc == [int(a) for a in acc[k, :, t]]
+            assert got_apows == [int(a) for a in apows[k]]
+    assert acc.max() < P
