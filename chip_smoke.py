@@ -241,13 +241,27 @@ def bound_ms(rows: int, width_in: int, width_out: int, perms_per_row: int) -> di
 
 
 # A field multiply counts as 4 multiply-adds (the partial products of a
-# 64x64 product) and a squaring as 3.  An inverse, as the kernels compute it
-# (one Fermat chain per point: 64 squarings and 10 multiplies), counts 232; by
-# the cheapest formulation known (one chain per batch of points and three
-# multiplies per further point - Montgomery's batch inversion) it counts 12.
+# 64x64 product) and a squaring as 3.  A Fermat chain (64 squarings and 10
+# multiplies) counts 232.  An inverse by the cheapest formulation known (one
+# chain per batch of values and three multiplies per further value -
+# Montgomery's batch inversion, the batch taken without limit) counts 12.  As
+# the kernels compute it, K3 spends one chain per point, K6 and K7 one per
+# block (``block_batch_inverse``).
 MUL, SQR = 4, 3
-INV_AS_COMPUTED = 64 * SQR + 10 * MUL
+CHAIN = 64 * SQR + 10 * MUL
 INV_BATCHED = 3 * MUL
+
+
+def block_batch_inverse(n_values: int, layout: tuple, per_thread: int) -> int:
+    """Multiply-adds of ``goldilocks.cuh::batch_inv_loose`` over ``n_values``
+    values, ``per_thread`` a thread, in blocks of ``layout[0]`` threads: a
+    thread's running product and walk back (three multiplies a further
+    value), the block's two warp scans, the product of the other warps'
+    totals and three multiplies a thread, and one chain a block."""
+    threads = layout[0]
+    blocks = -(-n_values // (threads * per_thread))
+    scans = 2 * (32).bit_length() - 2 + threads // 32 - 1 + 3
+    return blocks * CHAIN + blocks * threads * scans * MUL + n_values * INV_BATCHED
 
 
 def perm_columns_bound(K: int, C: int, R: int, n: int) -> dict:
@@ -273,7 +287,7 @@ def perm_columns_bound(K: int, C: int, R: int, n: int) -> dict:
     # back, q_j and z written by pass A, read and written again by pass C
     moved = points * 8 * (3 * R + 2 * (2 * nch - 3) + 3 * nch) + K * C * 8
     return bound(n_bytes, points * ((common + 1) * MUL + INV_BATCHED),
-                 points * ((common + 5 + 3 + 4 + 1 + 1) * MUL + INV_AS_COMPUTED), moved)
+                 points * ((common + 5 + 3 + 4 + 1 + 1) * MUL + CHAIN), moved)
 
 
 def perm_quotient_bound(K: int, C: int, R: int, L: int) -> dict:
@@ -288,21 +302,28 @@ def perm_quotient_bound(K: int, C: int, R: int, L: int) -> dict:
     return bound(n_bytes, mads, mads)
 
 
-def zinv_mul_bound(rows: int, L: int, distinct: int) -> dict:
+def zinv_mul_bound(rows: int, L: int, distinct: int, layout: tuple) -> dict:
     """K6: acc read, out written, z_h read; ``distinct`` values of z_h need an
-    inverse (on the prover's coset Z_H takes only ``blowup`` values)."""
+    inverse (on the prover's coset Z_H takes only ``blowup`` values).  As
+    computed, a batch inverse of every z_h value in the kernel's ``layout``
+    (threads a block, points a thread)."""
     n_bytes = (2 * rows + 1) * L * 8
-    return bound(n_bytes, distinct * INV_AS_COMPUTED + rows * L * MUL,
-                 L * INV_AS_COMPUTED + rows * L * MUL)
+    return bound(n_bytes, distinct * CHAIN + rows * L * MUL,
+                 block_batch_inverse(L, layout, layout[1]) + rows * L * MUL)
 
 
-def fri_initial_bound(K: int, L: int) -> dict:
-    """K7: comb1, comb2 read and G written as pairs, xs read."""
+def fri_initial_bound(K: int, L: int, layout: tuple) -> dict:
+    """K7: comb1, comb2 read and G written as pairs, xs read.  As computed
+    (``csrc/fri_init.cu``), per term three multiplies for the inverse's
+    components (7 z1 / N among them) and the four products of the sums, and
+    a batch inverse of the two norms of every point in the kernel's
+    ``layout`` (threads a block, points a thread)."""
     n_bytes = K * L * 3 * 16 + L * 8 + K * 8 * 8
     # per term: the square of the norm, two multiplies for the inverse's
     # components, four for the extension product and one by the small constant 7
     term = SQR + 2 * MUL + 4 * MUL + 2
-    return bound(n_bytes, K * L * 2 * (term + INV_BATCHED), K * L * 2 * (term + INV_AS_COMPUTED))
+    return bound(n_bytes, K * L * 2 * (term + INV_BATCHED),
+                 K * L * 2 * (SQR + 7 * MUL) + K * block_batch_inverse(2 * L, layout, 2 * layout[1]))
 
 
 def gate_quotient_bound(K: int, C: int, L: int) -> dict:
@@ -541,15 +562,16 @@ def phase_perm_kernels(device, rng, log_rows):
         err[kernel] = max([err[kernel]] + [max_abs_err(g, w) for g, w in zip(got, want) if g.numel()])
         log("kernels", kernel=kernel, **fields, mismatches=bad)
 
-    # gl_inv of the device header through the smallest kernel: 0, 1, p-1 and
-    # random lanes against the plain square-and-multiply and exact integers
+    # the batch inverse of the device header (batch_inv_loose) through the
+    # smallest kernel: 0, 1, p-1 and random lanes against the plain
+    # square-and-multiply and exact integers
     z_h = rand_field(rng, (odd,), device)
     z_h[:3] = gl.from_u64(np.array([0, 1, P - 1], dtype=np.uint64), device)
     got = zm.zinv_mul_cuda(torch.ones_like(z_h), z_h)
     hold("zinv_mul_cuda", [got], [gl.inv(z_h)], plain="ops.goldilocks.inv", L=odd)
     for x, y in zip(gl.to_u64(z_h[:64]), gl.to_u64(got[:64])):
         if int(y) != pow(int(x), P - 2, P):
-            raise RuntimeError(f"gl_inv({int(x)}) = {int(y)} on the card")
+            raise RuntimeError(f"the inverse of {int(x)} is {int(y)} on the card")
     log("kernels", kernel="zinv_mul_cuda", against="pow(x, p-2, p)", lanes=64, ok=True,
         inv_of_0_1_pm1=[int(v) for v in gl.to_u64(got[:3])])
 
@@ -562,6 +584,39 @@ def phase_perm_kernels(device, rng, log_rows):
             args = fri_initial_inputs(rng, device, K, L)
             hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
                  plain="fri_initial_plain", K=K, L=L)
+
+    # edge lanes, and zeros planted in one thread's points (``batch_points``):
+    # K6 z_h 0 at its first, a middle and its last point, over all the points
+    # of another thread and of a whole block; K7 proof k's zeta in the base
+    # field on the point at the first (k = 0), a middle (1) or the last (2)
+    # place of one thread's, its g*zeta likewise in another thread's, so that
+    # only that term is zero there
+    for L in (odd, L_main):
+        batch = batch_points(zm.batch_layout(), L)
+        span = zm.batch_layout()[0] * zm.batch_layout()[1]
+        for lead in ((), (1,), (4,)):
+            acc, z_h = edge_field(rng, lead + (L,), device), edge_field(rng, (L,), device)
+            z_h[[batch[0], batch[len(batch) // 2], batch[-1]]] = 0
+            z_h[[t + 2 for t in batch]] = 0
+            z_h[2 * span : 3 * span] = 0
+            got = zm.zinv_mul_cuda(acc, z_h)
+            hold("zinv_mul_cuda", [got], [zm.zinv_mul_plain(acc, z_h)], plain="zinv_mul_plain",
+                 rows=list(lead), L=L, inputs="edge lanes, planted zeros", thread_zeros_at=batch,
+                 block_zeros_from=2 * span, to=3 * span)
+            if not torch.equal(got != 0, (acc != 0) & (z_h != 0)):
+                raise RuntimeError("zinv_mul_cuda: a zero of z_h reached another lane")
+        batch = batch_points(fi.batch_layout(), L)
+        xs = gl.from_u64(rng.integers(0, P, size=L, dtype=np.uint64), device)  # distinct points
+        args = [edge_field(rng, (3, L, 2), device), edge_field(rng, (3, L, 2), device), xs]
+        args += [edge_field(rng, (3, 2), device) for _ in range(4)]
+        zeros = []
+        for k, i in enumerate((0, len(batch) // 2, len(batch) - 1)):
+            args[3][k] = torch.stack([xs[batch[i]], xs.new_zeros(())])
+            args[4][k] = torch.stack([xs[batch[i] + 1], xs.new_zeros(())])
+            zeros += [batch[i], batch[i] + 1]
+        hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
+             plain="fri_initial_plain", K=3, L=L, inputs="edge lanes, planted zero norms",
+             zero_norms_at=zeros)
 
     # K3, the whole function, at every size; at 2^20 + 8 points pass B
     # carries between more block totals than one of its scan steps holds;
@@ -644,11 +699,12 @@ def phase_perm_timings(device, rng, log_rows):
     z_h = gl.sub(rand_field(rng, (blowup,), device), 1).repeat(L // blowup)
     distinct = int(torch.unique(z_h).numel())
     record("zinv_mul_cuda", [C, L], lambda: zm.zinv_mul_cuda(acc, z_h),
-           lambda: zm.zinv_mul_plain(acc, z_h), zinv_mul_bound(C, L, distinct))
+           lambda: zm.zinv_mul_plain(acc, z_h),
+           zinv_mul_bound(C, L, distinct, zm.batch_layout()))
 
     args = fri_initial_inputs(rng, device, 1, L)
     record("fri_initial_cuda", [1, L, 2], lambda: fi.fri_initial_cuda(*args),
-           lambda: fi.fri_initial_plain(*args), fri_initial_bound(1, L))
+           lambda: fi.fri_initial_plain(*args), fri_initial_bound(1, L, fi.batch_layout()))
     del flush
     return out
 
@@ -673,6 +729,17 @@ def edge_field(rng, shape, device) -> torch.Tensor:
         flat[i :: 97 * len(EDGE_LANES)] = v
         flat[i * 97 + 1 :: 97 * len(EDGE_LANES)] = v
     return gl.from_u64(a, device)
+
+
+def batch_points(layout: tuple, L: int) -> list:
+    """The points of one thread in a kernel of ``layout`` (threads a block,
+    points a thread, which lie a block width apart): thread 1 of block 1.
+    ``L`` must hold three blocks."""
+    threads, points = layout
+    first = threads * points + 1
+    if 3 * threads * points > L:
+        raise ValueError(f"{L} points hold no three blocks of {layout}")
+    return [first + i * threads for i in range(points)]
 
 
 def all_canonical(x: torch.Tensor) -> bool:

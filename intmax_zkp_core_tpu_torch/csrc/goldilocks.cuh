@@ -4,9 +4,11 @@
 // It takes the place of the JAX package's ops/limb64.py, which carries each
 // u64 as two u32 planes because its target has no 64-bit integer unit.  The
 // GPU multiplies 64x64 directly (mul.lo.u64 + mul.hi.u64), so nothing of the
-// limb layout is reproduced: only the values are.  Every function mirrors
-// the formula of the plain PyTorch version (ops/goldilocks.py) step by step,
-// so the two agree bit for bit on every u64 input, canonical or not.
+// limb layout is reproduced: only the values are.  Two kinds of function:
+// the canonical ones first (add, sub, mul), which mirror the formulas of the
+// plain PyTorch version (ops/goldilocks.py) step by step (gate_quotient.cu
+// and perm_quotient.cu build their per-block tables with them, and the
+// former a few of its terms), then the loose ones of the hot loops.
 #pragma once
 
 typedef unsigned long long u64;
@@ -45,45 +47,15 @@ __device__ __forceinline__ u64 gl_mul(u64 a, u64 b) {
     return gl_reduce128(__umul64hi(a, b), a * b);
 }
 
-// x^7: four multiplies (x2, x3, x6, x7).
-__device__ __forceinline__ u64 gl_sbox7(u64 x) {
-    u64 x2 = gl_mul(x, x);
-    u64 x3 = gl_mul(x2, x);
-    u64 x6 = gl_mul(x3, x3);
-    return gl_mul(x6, x);
-}
-
-__device__ __forceinline__ u64 gl_neg(u64 a) { return a == 0 ? a : GL_P - a; }
-
-// a * c for a constant c < 2^20 (mirrors ops/goldilocks.py::mul_small): two
-// 32x32 partial products, recombined to a (top, low) pair and reduced once.
-__device__ __forceinline__ u64 gl_mul_small(u64 a, u64 c) {
-    u64 lo_part = (a & GL_EPSILON) * c;  // < 2^52
-    u64 hi_part = (a >> 32) * c;         // < 2^52
-    u64 low = lo_part + (hi_part << 32);
-    u64 top = (hi_part >> 32) + (low < lo_part ? 1ULL : 0ULL);
-    return gl_reduce128(top, low);
-}
-
-// x^(2^n) by n squarings; the loop is kept rolled: the chain is sequential
-// anyway and the Fermat inverse below is inlined into several kernels.
-__device__ __forceinline__ u64 gl_sqn(u64 x, int n) {
-#pragma unroll 1
-    for (int i = 0; i < n; ++i) x = gl_mul(x, x);
-    return x;
-}
-
 // ---------------------------------------------------------------------------
-// Loose arithmetic for the hot loops of poseidon.cu, ntt.cu,
-// gate_quotient.cu, perm_columns.cu and perm_quotient.cu.  A loose value is
+// Loose arithmetic for the hot loops of every kernel.  A loose value is
 // any u64 and stands for its residue mod p: it may lie in [p, 2^64).  The
 // functions below take loose inputs, return loose results and never compute
 // a general 64x64 multiply for a reduction; gl_canon makes a loose value
 // canonical once, at the end.  Carries are read from the carry flag, never
 // from a compare.  Each inline-PTX sequence sits alone in one small
-// function.  The functions above stay as they are: they mirror the
-// plain PyTorch version formula by formula and the other kernels use them.
-// Where a function's bound needs a canonical operand, its comment says so.
+// function.  Where a function's bound needs a canonical operand, its
+// comment says so.
 // ---------------------------------------------------------------------------
 
 typedef unsigned int u32;
@@ -362,23 +334,89 @@ __device__ __forceinline__ u64 gl_sbox7_loose(u64 x) {
 
 __device__ __forceinline__ u64 gl_canon(u64 x) { return x >= GL_P ? x - GL_P : x; }
 
-// x^-1 = x^(p-2), 0 -> 0.  p - 2 = 2^64 - 2^32 - 1 is 31 ones, a zero, then
-// 32 ones, so the chain builds c_k = x^(2^k - 1) by doubling
-// (c_2k = c_k^(2^k) * c_k): 64 squarings and 10 multiplies, against the 63
-// squarings and 62 multiplies of the plain version's square-and-multiply
-// (ops/goldilocks.py::inv).  The chains differ and the values do not: every
-// gl_mul returns the canonical product.
-__device__ __forceinline__ u64 gl_inv(u64 x) {
-    u64 c1 = x;
-    u64 c2 = gl_mul(gl_sqn(c1, 1), c1);
-    u64 c4 = gl_mul(gl_sqn(c2, 2), c2);
-    u64 c8 = gl_mul(gl_sqn(c4, 4), c4);
-    u64 c16 = gl_mul(gl_sqn(c8, 8), c8);
-    u64 c24 = gl_mul(gl_sqn(c16, 8), c8);
-    u64 c28 = gl_mul(gl_sqn(c24, 4), c4);
-    u64 c30 = gl_mul(gl_sqn(c28, 2), c2);
-    u64 c31 = gl_mul(gl_sqn(c30, 1), c1);
-    u64 c32 = gl_mul(gl_sqn(c31, 1), c1);  // x^(2^32 - 1)
-    // p - 2 = (2^31 - 1) * 2^33 + (2^32 - 1)
-    return gl_mul(gl_sqn(c31, 33), c32);
+// x^(2^n) * y on loose values; the squarings stay rolled: the chain is
+// sequential anyway, and it is inlined into several kernels.
+__device__ __forceinline__ u64 sqn_mul(u64 x, int n, u64 y) {
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) x = gl_sqr_loose(x);
+    return gl_mul_loose(x, y);
+}
+
+// x^-1 = x^(p-2) on loose values, 0 -> 0.  p - 2 = 2^64 - 2^32 - 1 is 31
+// ones, a zero, then 32 ones, so the chain builds c_k = x^(2^k - 1) by
+// doubling (c_2k = c_k^(2^k) * c_k): 64 squarings and 10 multiplies, against
+// the 63 squarings and 62 multiplies of the plain version's
+// square-and-multiply (ops/goldilocks.py::inv).  The chains differ and the
+// values do not: every step is exact mod p.
+__device__ __forceinline__ u64 inv_loose(u64 x) {
+    const u64 c2 = sqn_mul(x, 1, x), c4 = sqn_mul(c2, 2, c2), c8 = sqn_mul(c4, 4, c4);
+    const u64 c30 = sqn_mul(sqn_mul(sqn_mul(sqn_mul(c8, 8, c8), 8, c8), 4, c4), 2, c2);
+    const u64 c31 = sqn_mul(c30, 1, x), c32 = sqn_mul(c31, 1, x);  // x^(2^31 - 1), x^(2^32 - 1)
+    return sqn_mul(c31, 33, c32);  // p - 2 = (2^31 - 1) * 2^33 + (2^32 - 1)
+}
+
+// 1 / x for every thread's loose x (not 0 mod p), the block's THREADS
+// threads sharing one Fermat chain.  Each warp scans its lanes' values both
+// ways with shuffles (the products before and after each lane), the warps'
+// totals meet in shared memory, one thread inverts the block's total, and
+// each thread multiplies that inverse by the product of every value but its
+// own.  Every thread of the block calls it, once a kernel (its shared
+// memory is not guarded for a second call).
+template <int THREADS>
+__device__ __forceinline__ u64 block_inv_loose(u64 x) {
+    static_assert(THREADS % 32 == 0, "whole warps");
+    constexpr int WARPS = THREADS / 32;
+    __shared__ u64 warp_tot[WARPS], total_inv;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    u64 pre = x, suf = x;  // the warp's x_0 .. x_lane and x_lane .. x_31
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+        const u64 y = __shfl_up_sync(0xffffffffu, pre, d), z = __shfl_down_sync(0xffffffffu, suf, d);
+        if (lane >= d) pre = gl_mul_loose(pre, y);
+        if (lane + d < 32) suf = gl_mul_loose(suf, z);
+    }
+    if (lane == 31) warp_tot[warp] = pre;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        u64 t = warp_tot[0];
+#pragma unroll
+        for (int w = 1; w < WARPS; ++w) t = gl_mul_loose(t, warp_tot[w]);
+        total_inv = inv_loose(t);
+    }
+    __syncthreads();
+    u64 others = 1;  // the other warps' totals
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+        if (w != warp) others = gl_mul_loose(others, warp_tot[w]);
+    u64 before = __shfl_up_sync(0xffffffffu, pre, 1), after = __shfl_down_sync(0xffffffffu, suf, 1);
+    if (lane == 0) before = 1;
+    if (lane == 31) after = 1;
+    return gl_mul_loose(total_inv, gl_mul_loose(others, gl_mul_loose(before, after)));
+}
+
+// v[i] <- v[i]^-1 for the N loose values each thread of a block of THREADS
+// holds, 0 -> 0 in that lane only (the plain version's inv(0) = 0):
+// Montgomery's batch inversion, one chain for the whole block
+// (block_inv_loose on each thread's product) and three multiplies for each
+// further value.  A value that is 0 mod p (0 or p: the test reads the
+// canonical value) enters the running product as 1 and leaves as 0.  Every
+// thread of the block calls it, once a kernel.
+template <int THREADS, int N>
+__device__ __forceinline__ void batch_inv_loose(u64 (&v)[N]) {
+    u64 pre[N];  // pre[i] = v[0] * ... * v[i]
+    bool zero[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        zero[i] = gl_canon(v[i]) == 0;
+        if (zero[i]) v[i] = 1;
+        pre[i] = i == 0 ? v[0] : gl_mul_loose(pre[i - 1], v[i]);
+    }
+    u64 inv = block_inv_loose<THREADS>(pre[N - 1]);  // 1 / (v[0] * ... * v[i]), walking i down
+#pragma unroll
+    for (int i = N - 1; i > 0; --i) {
+        const u64 vi = v[i];
+        v[i] = zero[i] ? 0 : gl_mul_loose(inv, pre[i - 1]);
+        inv = gl_mul_loose(inv, vi);
+    }
+    v[0] = zero[0] ? 0 : inv;
 }

@@ -91,22 +91,6 @@ __device__ __forceinline__ u64 block_scan(u64 x, u64* warp_tot, u64& total) {
     return lane == 0 ? pre : gl_mul_loose(pre, before);
 }
 
-// x^(2^n) * y on loose values; the squarings stay rolled.
-__device__ __forceinline__ u64 sqn_mul(u64 x, int n, u64 y) {
-#pragma unroll 1
-    for (int i = 0; i < n; ++i) x = gl_sqr_loose(x);
-    return gl_mul_loose(x, y);
-}
-
-// x^(p-2) (0 -> 0) on loose values, by the addition chain of
-// goldilocks.cuh::gl_inv.
-__device__ __forceinline__ u64 inv_loose(u64 x) {
-    const u64 c2 = sqn_mul(x, 1, x), c4 = sqn_mul(c2, 2, c2), c8 = sqn_mul(c4, 4, c4);
-    const u64 c30 = sqn_mul(sqn_mul(sqn_mul(sqn_mul(c8, 8, c8), 8, c8), 4, c4), 2, c2);
-    const u64 c31 = sqn_mul(c30, 1, x), c32 = sqn_mul(c31, 1, x);  // x^(2^31 - 1), x^(2^32 - 1)
-    return sqn_mul(c31, 33, c32);  // p - 2 = (2^31 - 1) * 2^33 + (2^32 - 1)
-}
-
 // Pass A.  Grid (nb * C, K): block x is point block x / C of challenge x % C,
 // so the C blocks that read the same wire values run next to each other.
 // wires: element (k, i, t) at wires[k * wires_k_stride + i * wires_row_stride + t];

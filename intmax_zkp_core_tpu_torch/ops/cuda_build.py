@@ -50,7 +50,11 @@ _ARGTYPES = {
     "poseidon_set_constants": [_VP, _ULL, _VP, _VP, _VP],
     "poseidon_permute": [_VP, _VP, _LL, _VP],
     "poseidon_hash_no_pad": [_VP, _LL, _LL, _CI, _VP, _LL, _VP],
+    "zinv_mul_threads": [],
+    "zinv_mul_points": [],
     "zinv_mul": [_VP, _VP, _VP, _LL, _LL, _VP],
+    "fri_initial_threads": [],
+    "fri_initial_points": [],
     "fri_initial": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _VP],
     "perm_quotient": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _CI, _CI, _CI, _CI, _LL, _LL, _VP],

@@ -8,10 +8,13 @@ over F_p[X] / (X^2 - 7), at every point x of the LDE coset.
 
 ``fri_initial_cuda(comb1, comb2, xs, zetas, gzetas, c1z, c2gz)``: comb1, comb2
 [K, L, 2], xs [L], the per-proof scalars [K, 2] -> G [K, L, 2].  Replaces the
-JAX package's ``ops/fri_init_pallas.py::fri_initial_pallas_batched``.  The
-kernel (``csrc/fri_init.cu``) runs one thread per (proof, point); because x
-lies in the base field each extension inverse is one base-field inverse of
-the norm ``(x - z0)^2 - 7*z1^2``.
+JAX package's ``ops/fri_init_pallas.py::fri_initial_pallas_batched``.
+Because x lies in the base field each extension inverse is one base-field
+inverse of the norm ``(x - z0)^2 - 7*z1^2``.  In the kernel
+(``csrc/fri_init.cu``) a thread takes a few points of one proof
+(``batch_layout``), and a block inverts the two norms of all its points
+together (``batch_inv_loose`` of ``csrc/goldilocks.cuh``: one Fermat chain a
+block); a zero norm gives a zero term at that point, as in the plain version.
 
 The plain version is ``fri_initial_plain``: two ``gl.ext_inv``, two
 ``gl.ext_mul``, one ``gl.ext_add``.  The wrapper takes it only for tensors on
@@ -71,3 +74,10 @@ def fri_initial_cuda(comb1, comb2, xs, zetas, gzetas, c1z, c2gz) -> torch.Tensor
               comb1.data_ptr(), comb2.data_ptr(), xs.data_ptr(), zetas.data_ptr(),
               gzetas.data_ptr(), c1z.data_ptr(), c2gz.data_ptr(), out.data_ptr(), K, L)
     return out
+
+
+def batch_layout() -> tuple:
+    """(threads a block, points a thread) of the kernel; a thread's points lie
+    one block width apart.  Needs the built library (the card's machine)."""
+    lib = cb.load()
+    return lib.fri_initial_threads(), lib.fri_initial_points()

@@ -2,10 +2,11 @@
 hand-written CUDA kernel with its plain PyTorch version.
 
 ``zinv_mul_cuda(acc, z_h)``: acc [..., L], z_h [L] -> [..., L].  Replaces the
-JAX package's ``ops/zinv_mul_pallas.py::zinv_mul_pallas``.  The kernel
-(``csrc/zinv_mul.cu``) runs one thread per point, which takes one Fermat
-inverse (``gl_inv`` of ``csrc/goldilocks.cuh``) and multiplies it into that
-point of every leading row.
+JAX package's ``ops/zinv_mul_pallas.py::zinv_mul_pallas``.  In the kernel
+(``csrc/zinv_mul.cu``) a thread takes a few points (``batch_layout``), a block
+inverts the z_h values of all its points together (``batch_inv_loose`` of
+``csrc/goldilocks.cuh``: one Fermat chain a block), and each inverse is
+multiplied into that point of every leading row.
 
 The plain version is ``zinv_mul_plain`` = ``gl.mul(acc, gl.inv(z_h))``.  The
 wrapper takes it only for a tensor on the CPU; for a CUDA tensor it launches
@@ -46,3 +47,10 @@ def zinv_mul_cuda(acc: torch.Tensor, z_h: torch.Tensor) -> torch.Tensor:
     cb.launch("zinv_mul_cuda", "zinv_mul", acc.device,
               acc.data_ptr(), z_h.data_ptr(), out.data_ptr(), acc.numel() // L, L)
     return out
+
+
+def batch_layout() -> tuple:
+    """(threads a block, points a thread) of the kernel; a thread's points lie
+    one block width apart.  Needs the built library (the card's machine)."""
+    lib = cb.load()
+    return lib.zinv_mul_threads(), lib.zinv_mul_points()

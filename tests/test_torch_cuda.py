@@ -228,3 +228,54 @@ def test_ntt_and_gate_wrappers_never_take_the_plain_path_for_a_cuda_tensor(card)
             _rand(55, (1, 5, 64), card), _rand(56, (1, 5), card)]
     with pytest.raises(ValueError):
         gqc.poseidon_gate_quotient_cuda(*args)  # C = 5 above the kernel's four
+
+
+def _batch_points(layout, L):
+    """The points of one thread in a kernel's layout (threads a block, points
+    a thread, a block width apart): thread 1 of block 1."""
+    threads, points = layout
+    assert 3 * threads * points <= L
+    return [threads * points + 1 + i * threads for i in range(points)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(), (1,), (4,)], ids=str)
+def test_zinv_mul_cuda_zero_and_edge_lanes(card, rows):
+    # zeros at the first, a middle and the last point of one thread, all the
+    # points of another thread and of a whole block, and p (0 mod p, not
+    # canonical); edge lanes
+    L = 4104
+    acc, z_h = _edge(75, rows + (L,), card), _edge(76, (L,), card)
+    batch = _batch_points(zm.batch_layout(), L)
+    span = zm.batch_layout()[0] * zm.batch_layout()[1]
+    z_h[[batch[0], batch[len(batch) // 2], batch[-1]]] = 0
+    z_h[[t + 2 for t in batch]] = 0
+    z_h[2 * span : 3 * span] = 0
+    z_h[-1] = -(1 << 32) + 1  # p
+    before = pc.launch_counts()["zinv_mul_cuda"]
+    got = zm.zinv_mul_cuda(acc, z_h)
+    assert pc.launch_counts()["zinv_mul_cuda"] == before + 1
+    assert torch.equal(got, zm.zinv_mul_plain(acc, z_h)) and _canonical(got)
+    zeros = (z_h == 0) | (z_h == -(1 << 32) + 1)
+    assert torch.equal(got != 0, (acc != 0) & ~zeros)
+
+
+@pytest.mark.cuda
+def test_fri_initial_cuda_zero_norms_and_edge_lanes(card):
+    # K = 3 on edge lanes; proof k's zeta in the base field on the point at
+    # the first, a middle or the last place of one thread's points, its
+    # g*zeta likewise in another thread's: only that term of that point is
+    # zero
+    K, L = 3, 4104
+    args = [_edge(77, (K, L, 2), card), _edge(78, (K, L, 2), card),
+            gl.from_u64(np.random.default_rng(79).integers(0, P, size=L, dtype=np.uint64), card)]
+    args += [_edge(80 + i, (K, 2), card) for i in range(4)]
+    xs, zetas, gzetas = args[2], args[3], args[4]
+    batch = _batch_points(fi.batch_layout(), L)
+    for k, i in enumerate((0, len(batch) // 2, len(batch) - 1)):
+        zetas[k] = torch.stack([xs[batch[i]], xs.new_zeros(())])
+        gzetas[k] = torch.stack([xs[batch[i] + 1], xs.new_zeros(())])
+    before = pc.launch_counts()["fri_initial_cuda"]
+    got = fi.fri_initial_cuda(*args)
+    assert pc.launch_counts()["fri_initial_cuda"] == before + 1
+    assert torch.equal(got, fi.fri_initial_plain(*args)) and _canonical(got)

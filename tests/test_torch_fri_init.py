@@ -81,3 +81,73 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         fi.fri_initial_cuda(comb1, comb2[:, :4], xs, zetas, gzetas, c1z, c2gz)
     with pytest.raises(ValueError):
         fi.fri_initial_cuda(comb1, comb2, xs, zetas[0], gzetas, c1z, c2gz)
+
+
+# The kernel's schedule (csrc/fri_init.cu) in Python ints: each thread's
+# points, one block width apart, the two norms of all a block's points
+# inverted in one batch (goldilocks.cuh::batch_inv_loose, one chain a block),
+# each output lane one unreduced sum of four products reduced once; the loose
+# arithmetic of goldilocks.cuh, every value asserted below 2^64 by the
+# helpers.
+from test_torch_gate_quotient import _canon, _reduce_dot, _sub  # noqa: E402
+from test_torch_perm_quotient import EDGE_LANES, _batch_inv, _blocks, _mul  # noqa: E402
+
+
+def _replay(d, threads, warp, points):
+    K, L = d["comb1"].shape[:2]
+    v = lambda name, *idx: int(d[name][idx])  # noqa: E731
+    out = np.zeros((K, L, 2), dtype=np.uint64)
+    for k in range(K):
+        za0, za1, zb0, zb1 = v("zetas", k, 0), v("zetas", k, 1), v("gzetas", k, 0), v("gzetas", k, 1)
+        wa, wb = _canon(_mul(_mul(za1, za1), 7)), _canon(_mul(_mul(zb1, zb1), 7))
+        sa, sb = _mul(za1, 7), _mul(zb1, 7)
+        ca0, ca1, cb0, cb1 = v("c1z", k, 0), v("c1z", k, 1), v("c2gz", k, 0), v("c2gz", k, 1)
+        for block in _blocks(L, threads, points):
+            norms = []
+            for ts in block:  # each thread's norms of terms a and b, point by point
+                norms.append([])
+                for t in ts:
+                    x = v("xs", t) if t < L else 0
+                    da, db = _sub(x, za0), _sub(x, zb0)
+                    norms[-1] += [_sub(_mul(da, da), wa), _sub(_mul(db, db), wb)] if t < L else [1, 1]
+            for ts, inv in zip(block, _batch_inv(norms, warp)):
+                for i, t in enumerate(ts):
+                    if t >= L:
+                        continue
+                    x = v("xs", t)
+                    da, db = _sub(x, za0), _sub(x, zb0)
+                    na0, na1 = _sub(v("comb1", k, t, 0), ca0), _sub(v("comb1", k, t, 1), ca1)
+                    nb0, nb1 = _sub(v("comb2", k, t, 0), cb0), _sub(v("comb2", k, t, 1), cb1)
+                    ia0, ia1 = _mul(da, inv[2 * i]), _mul(za1, inv[2 * i])
+                    ib0, ib1 = _mul(db, inv[2 * i + 1]), _mul(zb1, inv[2 * i + 1])
+                    g0 = _reduce_dot([(na0, ia0), (na1, _mul(sa, inv[2 * i])), (nb0, ib0),
+                                      (nb1, _mul(sb, inv[2 * i + 1]))])
+                    g1 = _reduce_dot([(na0, ia1), (na1, ia0), (nb0, ib1), (nb1, ib0)])
+                    out[k, t] = (_canon(g0), _canon(g1))
+    return out
+
+
+@pytest.mark.parametrize("threads,warp,points,L", [(8, 4, 3, 61), (4, 2, 2, 37)])
+def test_kernel_schedule_replayed_in_python_ints(threads, warp, points, L):
+    # K = 3 proofs on edge lanes, partial last blocks; proof k's zeta lies in
+    # the base field on xs at the first (k = 0), a middle (1) or the last (2)
+    # point of one thread, and its g*zeta likewise on another thread's, so
+    # that one term of that point has a zero norm
+    d = _inputs(L, K=3, seed=70)
+    rng = np.random.default_rng(71)
+    for name, a in d.items():  # xs once each: the points of a domain are distinct
+        flat = a.reshape(-1)
+        for i, e in enumerate(EDGE_LANES):
+            flat[int(rng.integers(0, 5)) + i :: L if name == "xs" else 7 * len(EDGE_LANES)] = e
+    first = next(_blocks(L, threads, points))
+    on_domain = []
+    for k, i in enumerate((0, points // 2, points - 1)):
+        ta, tb = first[1][i], first[2][i]
+        d["zetas"][k], d["gzetas"][k] = (d["xs"][ta], 0), (d["xs"][tb], 0)
+        on_domain += [(k, ta), (k, tb)]
+    assert len(set(d["xs"].tolist())) == L  # each planted zeta meets one point only
+    want = gl.to_u64(fi.fri_initial_plain(*_t(d)))
+    got = _replay(d, threads, warp, points)
+    assert np.array_equal(got, want) and got.max() < P
+    for k, t in on_domain:  # the other term of that point is still there
+        assert want[k, t].any()

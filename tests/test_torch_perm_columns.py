@@ -109,23 +109,9 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
 # blocks, several warps and more block totals than one scan step hold are
 # exercised.
 from test_torch_gate_quotient import _add, _canon, _reduce128  # noqa: E402
-from test_torch_perm_quotient import _chain, _mul  # noqa: E402
+from test_torch_perm_quotient import _chain, _inv, _mul  # noqa: E402
 
 EDGE_LANES = (0, 1, (1 << 32) - 1, 1 << 32, 1 << 63, P - 1)
-
-
-def _inv(x):  # inv_loose: gl_inv's addition chain on loose values
-    def sqn_mul(v, n, y):
-        for _ in range(n):
-            v = _mul(v, v)
-        return _mul(v, y)
-
-    c2 = sqn_mul(x, 1, x)
-    c4 = sqn_mul(c2, 2, c2)
-    c8 = sqn_mul(c4, 4, c4)
-    t = sqn_mul(sqn_mul(sqn_mul(sqn_mul(c8, 8, c8), 8, c8), 4, c4), 2, c2)
-    c31 = sqn_mul(t, 1, x)
-    return sqn_mul(c31, 33, sqn_mul(c31, 1, x))
 
 
 def _block_scan(xs, warp):  # block_scan<THREADS> -> (exclusive products, total)

@@ -6,9 +6,10 @@ K5: ``perm_quotient_jnp_limb`` (the Pallas kernel's tile computation run
 eagerly, as the JAX package's own CPU test runs it) against
 ``perm_quotient_plain`` / ``perm_quotient_cuda``.  K6: ``gl.mul(acc,
 gl.inv(z_h))`` of the JAX package against ``zinv_mul_plain``.  ``inv``:
-``limb64.inv`` (the addition chain the CUDA header's ``gl_inv`` follows)
+``limb64.inv`` (the addition chain the CUDA header's ``inv_loose`` follows)
 against the port's ``gl.inv`` (square-and-multiply) on 0, 1, p-1 and random
-lanes.  On the CPU a wrapper takes its plain version.  Tolerance 0."""
+lanes.  On the CPU a wrapper takes its plain version.  Tolerance 0.  Below,
+both kernels' schedules are replayed in Python ints."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,6 +144,76 @@ def _chain(facs):  # perm_chunk.cuh::chunk_product: left to right, loose
     return p
 
 
+def _inv(x):  # goldilocks.cuh::inv_loose: the addition chain on loose values
+    def sqn_mul(v, n, y):
+        for _ in range(n):
+            v = _mul(v, v)
+        return _mul(v, y)
+
+    c2 = sqn_mul(x, 1, x)
+    c4 = sqn_mul(c2, 2, c2)
+    c8 = sqn_mul(c4, 4, c4)
+    t = sqn_mul(sqn_mul(sqn_mul(sqn_mul(c8, 8, c8), 8, c8), 4, c4), 2, c2)
+    c31 = sqn_mul(t, 1, x)
+    return sqn_mul(c31, 33, sqn_mul(c31, 1, x))
+
+
+def _block_inv(xs, warp):
+    """goldilocks.cuh::block_inv_loose over one block's thread values, in
+    warps of ``warp`` lanes -> each value's inverse (none of them 0 mod p)."""
+    pre, suf, d = list(xs), list(xs), 1
+    while d < warp:  # both scans through shuffles, from the values before the step
+        pre = [_mul(v, pre[i - d]) if i % warp >= d else v for i, v in enumerate(pre)]
+        suf = [_mul(v, suf[i + d]) if i % warp + d < warp else v for i, v in enumerate(suf)]
+        d *= 2
+    warp_tot = pre[warp - 1 :: warp]
+    total = warp_tot[0]
+    for v in warp_tot[1:]:
+        total = _mul(total, v)
+    total_inv, out = _inv(total), []
+    for i in range(len(xs)):
+        w, lane = divmod(i, warp)
+        others = 1
+        for j, v in enumerate(warp_tot):
+            if j != w:
+                others = _mul(others, v)
+        before = 1 if lane == 0 else pre[i - 1]
+        after = 1 if lane == warp - 1 else suf[i + 1]
+        out.append(_mul(total_inv, _mul(others, _mul(before, after))))
+    return out
+
+
+def _batch_inv(block, warp):
+    """goldilocks.cuh::batch_inv_loose over one block: ``block`` holds each
+    thread's values -> their inverses, 0 -> 0."""
+    zero = [[_canon(x) == 0 for x in v] for v in block]  # the canonical value: p is 0 as well
+    assert zero == [[x % P == 0 for x in v] for v in block]
+    block = [[1 if z else x for x, z in zip(v, zs)] for v, zs in zip(block, zero)]
+    pres = []
+    for v in block:  # each thread's running product
+        pres.append([v[0]])
+        for x in v[1:]:
+            pres[-1].append(_mul(pres[-1][-1], x))
+    invs, out = _block_inv([pre[-1] for pre in pres], warp), []
+    for v, pre, zs, inv in zip(block, pres, zero, invs):  # each thread's walk back
+        o = [None] * len(v)
+        for i in range(len(v) - 1, 0, -1):
+            o[i] = 0 if zs[i] else _mul(inv, pre[i - 1])
+            inv = _mul(inv, v[i])
+        o[0] = 0 if zs[0] else inv
+        out.append(o)
+    return out
+
+
+def _blocks(L, threads, points):
+    """The points of each block of a kernel that takes ``points`` points a
+    thread, ``threads`` apart, in blocks of ``threads`` threads: per block,
+    each thread's points (the last ones beyond L)."""
+    span = threads * points
+    for b in range(-(-L // span)):
+        yield [[b * span + i * threads + j for i in range(points)] for j in range(threads)]
+
+
 def _replay_point(d, k, t, blowup):
     """perm_quotient_kernel<C> at proof k, point t -> (acc [C], apows [C])."""
     K, C, L = d["zs_lde"].shape
@@ -205,3 +276,40 @@ def test_kernel_order_replayed_in_python_ints(C_, R):
             assert got_acc == [int(a) for a in acc[k, :, t]]
             assert got_apows == [int(a) for a in apows[k]]
     assert acc.max() < P
+
+
+def _replay_zinv_mul(acc, z_h, threads, warp, points):
+    """zinv_mul_kernel: each block's points inverted together, points beyond
+    L as 1, each inverse multiplied into every leading row."""
+    L = z_h.shape[0]
+    rows = acc.reshape(-1, L)
+    out = np.zeros_like(rows)
+    for block in _blocks(L, threads, points):
+        invs = _batch_inv([[int(z_h[t]) if t < L else 1 for t in ts] for ts in block], warp)
+        for ts, inv in zip(block, invs):
+            for r in range(rows.shape[0]):
+                for t, v in zip(ts, inv):
+                    if t < L:
+                        out[r, t] = _canon(_mul(int(rows[r, t]), v))
+    return out.reshape(acc.shape)
+
+
+@pytest.mark.parametrize("threads,warp,points,L,lead",
+                         [(8, 4, 3, 61, (2,)), (4, 2, 2, 37, ()), (8, 2, 1, 29, (3,))])
+def test_zinv_mul_schedule_replayed_in_python_ints(threads, warp, points, L, lead):
+    # partial last blocks; zeros at the first, a middle and the last point
+    # of one thread, all the points of another and of a whole block, and p
+    # (0 mod p, not canonical)
+    acc = _edge({"a": _lanes(80 + L, lead + (L,))}, 81)["a"]
+    z_h = _edge({"z": _lanes(82 + L, (L,))}, 83)["z"]
+    first, second = list(_blocks(L, threads, points))[:2]
+    ts = first[1]
+    z_h[[ts[0], ts[points // 2], ts[-1]]] = 0
+    z_h[first[3]] = 0
+    z_h[[t for thread in second for t in thread if t < L]] = 0
+    z_h[-1] = P
+    want = gl.to_u64(zm.zinv_mul_plain(gl.from_u64(acc, "cpu"), gl.from_u64(z_h, "cpu")))
+    got = _replay_zinv_mul(acc, z_h, threads, warp, points)
+    assert np.array_equal(got, want) and got.max() < P
+    zeros = (z_h == 0) | (z_h == P)
+    assert np.array_equal(want != 0, (acc != 0) & ~zeros)  # 0 in the zero lanes only
