@@ -16,7 +16,19 @@ it exits 1 at once.
 Eight kernels are built and held: the Poseidon permutation and sponge, the
 four of the permutation argument (permutation columns, permutation terms of
 the quotient, the divide by Z_H, the initial FRI quotient), the Poseidon
-gate's share of the quotient and the NTT.
+gate's share of the quotient and the NTT.  The host C++ (``native/``: the
+Poseidon permutation and sponge of the transcript and the host tree walks,
+and the witness-generation engine) is built with g++ and held against the
+Python versions (``[native]``, ``[chain-witness]``).
+
+A second path runs after the chain: the SMT process-proof loop of
+``bin/verify_smt_process.py`` at n_levels=256 and
+``standard_recursion_config`` (``[smt]``), whose first proof must hash to
+``golden/smt_process_256_standard.sha256`` (made by the JAX package).  The
+launch counts are set to 0 before each path and read after it.  Every kernel
+is held against its plain version at the shapes of both paths (the chain's
+2^N rows and the SMT circuit's 2^12, LDE 8x); each such comparison's line
+names its path.
 
 Two lines describe the kernels' code and where the device time of a proof
 goes: ``[sass]`` counts the SASS instructions, IMAD-class instructions,
@@ -395,7 +407,23 @@ def expect_per_proof(before: dict, after: dict, what: str) -> None:
                 f"the {what} proof launched {name} {after[name] - before[name]} times, not {want}")
 
 
-def phase_kernels(device, rng):
+def path_tag(path) -> dict:
+    """The log field naming the main path whose shape a hold is at."""
+    return {"path": path} if path else {}
+
+
+def path_sizes(paths: dict, shift: int = 0) -> list:
+    """(2^(log_rows + shift), path) of each main path, by name."""
+    return [(1 << (log_rows + shift), path) for path, log_rows in paths.items()]
+
+
+def phase_kernels(device, rng, paths):
+    """K1 and K1b against their plain versions: batch sizes that the block of
+    128 rows does and does not divide, sponge widths 1 - 135 contiguous and
+    as a transposed view, and at the shapes of each main path (``paths``:
+    name -> log2 rows): the permutations of its LDE leaves' chained sponge
+    and of its first tree level, the fused sponge over its leaves of 135, 24
+    and 16 columns (transposed views) and its tree-level pairs."""
     from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
     from intmax_zkp_core_tpu_torch.ops import poseidon as ps
     from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
@@ -434,6 +462,24 @@ def phase_kernels(device, rng):
             log("kernels", kernel="hash_no_pad_cuda", plain="ops.poseidon.hash_no_pad",
                 width=width, B=B, loose=loose, mismatches=bad, mismatches_strided=bad_t,
                 mismatches_chained=bad_c)
+    for L, path in path_sizes(paths, 3):
+        for B in (L // 2, L):
+            x = rand_field(rng, (B, 12), device)
+            got, want = pc.permute_cuda(x), pc.permute_plain(x)
+            bad = mismatches(got, want)
+            worst["permute_cuda"] = max(worst["permute_cuda"], bad)
+            err["permute_cuda"] = max(err["permute_cuda"], max_abs_err(got, want))
+            log("kernels", kernel="permute_cuda", plain="ops.poseidon.permute", B=B, path=path,
+                mismatches=bad)
+        for width, strided in ((135, True), (24, True), (16, True), (8, False)):
+            x = rand_field(rng, (width, L) if strided else (L, width), device)
+            x = x.t() if strided else x
+            got, want = pc.hash_no_pad_cuda(x), pc.hash_no_pad_plain(x)
+            bad = mismatches(got, want)
+            worst["hash_no_pad_cuda"] = max(worst["hash_no_pad_cuda"], bad)
+            err["hash_no_pad_cuda"] = max(err["hash_no_pad_cuda"], max_abs_err(got, want))
+            log("kernels", kernel="hash_no_pad_cuda", plain="ops.poseidon.hash_no_pad",
+                width=width, B=L, strided=strided, path=path, mismatches=bad)
     # the exact Python-int permutation on a few rows
     x = rand_field(rng, (4, 12), device)
     got = gl.to_u64(pc.permute_cuda(x))
@@ -539,18 +585,20 @@ def fri_initial_inputs(rng, device, K, L):
             rand_field(rng, (L,), device)] + [rand_field(rng, (K, 2), device) for _ in range(4)]
 
 
-def phase_perm_kernels(device, rng, log_rows):
+def phase_perm_kernels(device, rng, paths):
     """The four kernels of the permutation argument against their plain
-    versions on the card, from 8 points up to the main path's sizes, at a
-    size that no block size divides, and over a leading axis of 1 and 3."""
+    versions on the card, from 8 points up to each main path's sizes
+    (``paths``: name -> log2 rows; n = 2^log_rows, L = 8 n), at a size that
+    no block size divides, and over a leading axis of 1 and 3."""
     from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
     from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
     from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
     from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
     from intmax_zkp_core_tpu_torch.ops import zinv_mul_cuda as zm
 
-    n_main, L_main, odd, blowup, C = 1 << log_rows, 1 << (log_rows + 3), (1 << 12) + 8, 8, 2
+    odd, blowup, C = (1 << 12) + 8, 8, 2
     big = (1 << 20) + 8
+    L_sizes = [(8, None), (odd, None)] + path_sizes(paths, 3)
     worst = dict.fromkeys(NEW_KERNELS, 0)
     err = dict.fromkeys(NEW_KERNELS, 0.0)
 
@@ -575,15 +623,15 @@ def phase_perm_kernels(device, rng, log_rows):
     log("kernels", kernel="zinv_mul_cuda", against="pow(x, p-2, p)", lanes=64, ok=True,
         inv_of_0_1_pm1=[int(v) for v in gl.to_u64(got[:3])])
 
-    for L in (8, odd, L_main):
-        for lead in ((), (1,), (4,)):
+    for L, path in L_sizes:
+        for lead in ((), (1,), (2,), (4,)):
             acc, z_h = rand_field(rng, lead + (L,), device), rand_field(rng, (L,), device)
             hold("zinv_mul_cuda", [zm.zinv_mul_cuda(acc, z_h)], [zm.zinv_mul_plain(acc, z_h)],
-                 plain="zinv_mul_plain", rows=list(lead), L=L)
+                 plain="zinv_mul_plain", rows=list(lead), L=L, **path_tag(path))
         for K in (1, 3):
             args = fri_initial_inputs(rng, device, K, L)
             hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
-                 plain="fri_initial_plain", K=K, L=L)
+                 plain="fri_initial_plain", K=K, L=L, **path_tag(path))
 
     # edge lanes, and zeros planted in one thread's points (``batch_points``):
     # K6 z_h 0 at its first, a middle and its last point, over all the points
@@ -591,10 +639,10 @@ def phase_perm_kernels(device, rng, log_rows):
     # field on the point at the first (k = 0), a middle (1) or the last (2)
     # place of one thread's, its g*zeta likewise in another thread's, so that
     # only that term is zero there
-    for L in (odd, L_main):
+    for L, path in L_sizes[1:]:
         batch = batch_points(zm.batch_layout(), L)
         span = zm.batch_layout()[0] * zm.batch_layout()[1]
-        for lead in ((), (1,), (4,)):
+        for lead in ((), (1,), (2,), (4,)):
             acc, z_h = edge_field(rng, lead + (L,), device), edge_field(rng, (L,), device)
             z_h[[batch[0], batch[len(batch) // 2], batch[-1]]] = 0
             z_h[[t + 2 for t in batch]] = 0
@@ -602,7 +650,7 @@ def phase_perm_kernels(device, rng, log_rows):
             got = zm.zinv_mul_cuda(acc, z_h)
             hold("zinv_mul_cuda", [got], [zm.zinv_mul_plain(acc, z_h)], plain="zinv_mul_plain",
                  rows=list(lead), L=L, inputs="edge lanes, planted zeros", thread_zeros_at=batch,
-                 block_zeros_from=2 * span, to=3 * span)
+                 block_zeros_from=2 * span, to=3 * span, **path_tag(path))
             if not torch.equal(got != 0, (acc != 0) & (z_h != 0)):
                 raise RuntimeError("zinv_mul_cuda: a zero of z_h reached another lane")
         batch = batch_points(fi.batch_layout(), L)
@@ -616,20 +664,21 @@ def phase_perm_kernels(device, rng, log_rows):
             zeros += [batch[i], batch[i] + 1]
         hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
              plain="fri_initial_plain", K=3, L=L, inputs="edge lanes, planted zero norms",
-             zero_norms_at=zeros)
+             zero_norms_at=zeros, **path_tag(path))
 
     # K3, the whole function, at every size; at 2^20 + 8 points pass B
     # carries between more block totals than one of its scan steps holds;
     # then C = 1, 3, 4 and 5 and edge lanes with a zero g total.  K5 at every R
-    # up to the odd size and, at the main path's L, at the main path's R only
+    # up to the odd size and, at each main path's L, at the main paths' R only
     # (its plain version takes seconds there), then C = 1 - 4 on edge lanes
     # and C = 5.  K5 itself takes any L: the shift by `blowup` wraps modulo L.
-    for n in (8, odd, n_main, big):
+    for n, path in [(8, None), (odd, None)] + path_sizes(paths) + [(big, None)]:
         for R in (3, 7, 8, 23, 80) if n != big else (80,):
             for K in (1, 3) if n != big else (1,):
                 args = perm_columns_inputs(rng, device, K, C, R, n, extra_rows=K - 1)
                 hold("perm_columns_cuda", pcol.perm_columns_cuda(*args),
-                     pcol.perm_columns_plain(*args), plain="perm_columns_plain", K=K, C=C, R=R, n=n)
+                     pcol.perm_columns_plain(*args), plain="perm_columns_plain", K=K, C=C, R=R, n=n,
+                     **path_tag(path))
                 del args
     for C_ in (1, 3, 4, 5):
         args = perm_columns_inputs(rng, device, 2, C_, 23, odd, extra_rows=1)
@@ -645,15 +694,16 @@ def phase_perm_kernels(device, rng, log_rows):
         if not (bool((z[0, 0, first + 1 :] == 0).all()) and bool((z[0, 0, : first + 1] != 0).all())
                 and bool((z[0, 1] != 0).all())):
             raise RuntimeError("a zero g total did not zero Z from the next point on, alone")
-    for L, Rs in ((8, (3, 7, 8, 23, 80)), (odd, (3, 7, 8, 23, 80)), (L_main, (80,))):
-        for R in Rs:
+    for L, path in L_sizes:
+        for R in (80,) if path else (3, 7, 8, 23, 80):
             for K in (1, 3):
-                # at the main path's shape the wire matrix carries all 135 rows
-                extra = 55 if (L == L_main and K == 1) else K - 1
+                # at a main path's shape the wire matrix carries all 135 rows
+                extra = 55 if (path and K == 1) else K - 1
                 args = perm_quotient_inputs(rng, device, K, C, R, L, extra_rows=extra)
                 hold("perm_quotient_cuda", pq.perm_quotient_cuda(*args, blowup),
                      pq.perm_quotient_plain(*args, blowup),
-                     plain="perm_quotient_plain", K=K, R=R, L=L, wire_rows=R + extra)
+                     plain="perm_quotient_plain", K=K, R=R, L=L, wire_rows=R + extra,
+                     **path_tag(path))
                 del args
     for C_, edge in ((1, True), (2, True), (3, True), (4, True), (5, False)):
         args = perm_quotient_inputs(rng, device, 2, C_, 80, odd, extra_rows=2, edge=edge)
@@ -759,15 +809,16 @@ def ntt_chain_shapes(log_rows):
             "ntt_cuda_intt_quotient": (2, L, True), "ntt_cuda_quotient": (16, L, False)}
 
 
-def phase_gate_ntt_kernels(device, rng, log_rows):
+def phase_gate_ntt_kernels(device, rng, paths):
     """K4 and K2 against their plain versions on the card.  K4 at K in {1, 3},
-    C = 2, 64 / 2^14 / the main path's LDE points, the wire matrix with its
-    135 rows at K = 1 and with two more at K = 3; K2 at every length 2^0 ..
-    2^22 at B = 1 and at B = 135 with the main path's lengths, both
-    directions, and the round trip through the public entry points.  Then
-    both on edge-lane inputs (0, 1, 2^32 - 1, 2^32, 2^63, p - 1): K4 at
-    C = 1 .. 4 over a number of points no block divides, K2 at every shape of
-    a chain proof; every output lane must be below p."""
+    C = 2, 64 / 2^14 / each main path's (``paths``: name -> log2 rows) LDE
+    points, the wire matrix with its 135 rows at K = 1 and with two more at
+    K = 3; K2 at every length 2^0 .. 2^22 at B = 1 and at every (B, length)
+    of each main path's proof (``ntt_chain_shapes``), both directions, and the
+    round trip through the public entry points.  Then both on edge-lane
+    inputs (0, 1, 2^32 - 1, 2^32, 2^63, p - 1): K4 at C = 1 .. 4 over a
+    number of points no block divides, K2 at every shape of each main path's
+    proof; every output lane must be below p."""
     from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
     from intmax_zkp_core_tpu_torch.ops import ntt as nt
     from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
@@ -784,12 +835,12 @@ def phase_gate_ntt_kernels(device, rng, log_rows):
         log("kernels", kernel=kernel, **fields, mismatches=bad)
 
     C = 2
-    for L in (64, 1 << 14, 1 << (log_rows + 3)):
+    for L, path in [(64, None), (1 << 14, None)] + path_sizes(paths, 3):
         for K in (1, 3):
             args = gate_quotient_inputs(rng, device, K, C, L, extra_rows=0 if K == 1 else 2)
             hold("poseidon_gate_quotient_cuda", gqc.poseidon_gate_quotient_cuda(*args),
                  gqc.poseidon_gate_quotient_plain(*args), plain="poseidon_gate_quotient_plain",
-                 K=K, C=C, L=L, wire_rows=args[0].shape[1])
+                 K=K, C=C, L=L, wire_rows=args[0].shape[1], **path_tag(path))
             del args
     for C in (1, 2, 3, 4):
         L = (1 << 14) + 100
@@ -800,22 +851,31 @@ def phase_gate_ntt_kernels(device, rng, log_rows):
              gqc.poseidon_gate_quotient_plain(*args), plain="poseidon_gate_quotient_plain",
              K=2, C=C, L=L, inputs="edge lanes")
         del args
-    shapes = [(1, log_n) for log_n in range(nc.MAX_LOG_N + 1)]
-    shapes += [(135, log_rows), (135, log_rows + 3)]
-    for B, log_n in shapes:
-        x = rand_field(rng, (B, 1 << log_n), device)
+    # K2's layout depends on the batch as well as the length (``group_log``),
+    # so every (B, length) of each path is held in both directions
+    shapes = [(1, 1 << log_n, None) for log_n in range(nc.MAX_LOG_N + 1)]
+    for path, log_rows in paths.items():
+        shapes += [(B, n, path) for B, n in dict.fromkeys(
+            (B, n) for B, n, _ in ntt_chain_shapes(log_rows).values())]
+    round_trip = {1 << k for k in (1, 11, 12, nc.MAX_LOG_N)}
+    round_trip |= {1 << (k + d) for k in paths.values() for d in (0, 3)}
+    for B, n, path in shapes:
+        x = rand_field(rng, (B, n), device)
         for inverse in (False, True):
             hold("ntt_cuda", [nc.ntt_cuda(x, inverse)], [nc.ntt_plain(x, inverse)],
-                 plain="ops.ntt._ntt_impl", B=B, n=1 << log_n, inverse=inverse)
-        if log_n in (1, 11, 12, log_rows, log_rows + 3, nc.MAX_LOG_N):
+                 plain="ops.ntt._ntt_impl", B=B, n=n, inverse=inverse, **path_tag(path))
+        if n in round_trip:
             back = nt.intt(nt.ntt(x))
-            hold("ntt_cuda", [back], [x], against="intt(ntt(x)) == x", B=B, n=1 << log_n)
+            hold("ntt_cuda", [back], [x], against="intt(ntt(x)) == x", B=B, n=n,
+                 **path_tag(path))
         del x
-    for name, (B, n, inverse) in ntt_chain_shapes(log_rows).items():
-        x = edge_field(rng, (B, n), device)
-        hold("ntt_cuda", [nc.ntt_cuda(x, inverse)], [nc.ntt_plain(x, inverse)],
-             plain="ops.ntt._ntt_impl", B=B, n=n, inverse=inverse, inputs="edge lanes")
-        del x
+    for path, log_rows in paths.items():
+        for name, (B, n, inverse) in ntt_chain_shapes(log_rows).items():
+            x = edge_field(rng, (B, n), device)
+            hold("ntt_cuda", [nc.ntt_cuda(x, inverse)], [nc.ntt_plain(x, inverse)],
+                 plain="ops.ntt._ntt_impl", B=B, n=n, inverse=inverse, inputs="edge lanes",
+                 path=path)
+            del x
     try:
         nc.ntt_cuda(torch.zeros((1, 2 << nc.MAX_LOG_N), dtype=torch.int64, device=device))
     except ValueError:
@@ -986,7 +1046,7 @@ def phase_chain(device, log_rows):
         raise RuntimeError("fused-sponge and chained wirings give different proofs")
     log("chain-fused", prove_s=round(t1 - t0, 3), caps="equal", proof="equal",
         **{k: round(v, 4) for k, v in fused_timings.items()})
-    return circuit, seed, salt, proof
+    return (circuit, seed, salt, proof), (timings, fused_timings)
 
 
 def phase_chain_plain(circuit, seed, salt, proof):
@@ -1032,6 +1092,135 @@ def phase_chain_plain(circuit, seed, salt, proof):
         raise RuntimeError("kernel-path and plain-path proofs differ")
     log("chain-plain", prove_s=round(t1 - t0, 3), proof="equal", kernels_launched=0,
         **{k: round(v, 4) for k, v in timings.items()})
+
+
+def phase_native(rng) -> None:
+    """Build the host C++ with g++ and hold the native permutation and
+    sponge against ``permute_s`` and the sponge's Python body: seeded states,
+    every lane on each edge value, and inputs of every width 0 - 25."""
+    from intmax_zkp_core_tpu_torch.native import loader
+    from intmax_zkp_core_tpu_torch.ops import poseidon as ps
+
+    gxx = subprocess.run([loader.CXX, "--version"], capture_output=True, text=True, timeout=60)
+    loader.load("poseidon")
+    loader.load("witness")
+
+    def rows(n, width):
+        out = [[int(v) for v in r] for r in rng.integers(0, P, size=(n, width), dtype=np.uint64)]
+        out += [[v] * width for v in EDGE_LANES]
+        out.append([EDGE_LANES[i % len(EDGE_LANES)] for i in range(width)])
+        return out
+
+    states = rows(256, 12)
+    bad_perm = sum(
+        [int(v) for v in got] != ps.permute_s(state)
+        for state, got in zip(states, loader.native_permute_batch(states)))
+    bad_perm += sum(ps.permute_host(state) != ps.permute_s(state) for state in states[:16])
+    bad_sponge, n_sponge = 0, 0
+    for width in range(26):
+        for row in rows(16, width):
+            bad_sponge += ps.hash_n_to_m_no_pad_s(row) != ps.hash_n_to_m_no_pad_plain_s(row, 4)
+            n_sponge += 1
+    log("native", gxx="'" + gxx.stdout.splitlines()[0] + "'",
+        flags="'" + " ".join(loader.CXX_FLAGS) + "'",
+        build_s={k: round(v, 2) for k, v in loader.BUILD_SECONDS.items()},
+        permutations=len(states) + 16, permutation_mismatches=bad_perm,
+        sponges=n_sponge, widths="0-25", sponge_mismatches=bad_sponge, edge_lanes=list(EDGE_LANES))
+    if bad_perm or bad_sponge:
+        raise RuntimeError("the native Poseidon disagrees with the Python one")
+
+
+def phase_chain_witness(circuit, seed, salt, timings: dict, fused_timings: dict) -> None:
+    """The chain's witness: the first proof's (the fill plan built in it) and
+    the second's, the plan and the native fill timed apart, and once the
+    Python ``WitnessFill``, whose wire matrix and public inputs must equal
+    the native fill's."""
+    from intmax_zkp_core_tpu_torch.engine.prover import compute_wire_matrix, compute_wire_matrix_plain
+    from intmax_zkp_core_tpu_torch.native.witness import FillPlan
+
+    pd, pw = circuit.data.prover, circuit.witness(seed, salt)
+    t0 = time.perf_counter()
+    FillPlan(pd)  # a fresh plan, as the first proof built it
+    t1 = time.perf_counter()
+    wires, pi = compute_wire_matrix(pd, pw)
+    t2 = time.perf_counter()
+    wires_py, pi_py = compute_wire_matrix_plain(pd, pw)
+    t3 = time.perf_counter()
+    if not (wires == wires_py).all() or pi != pi_py:
+        raise RuntimeError("the native and the Python witness fills differ")
+    log("chain-witness", first_proof_witness_s=round(timings["witness"], 4),
+        second_proof_witness_s=round(fused_timings["witness"], 4), plan_s=round(t1 - t0, 4),
+        native_fill_s=round(t2 - t1, 4), python_fill_s=round(t3 - t2, 4),
+        wires="equal", public_inputs="equal", records=len(pd.generators))
+
+
+SMT_LEVELS, SMT_STEPS, SMT_SEED = 256, 5, 1
+SMT_LOG_ROWS = 12  # log2 rows of the process circuit at SMT_LEVELS, standard config
+
+
+def phase_smt(golden_path) -> list:
+    """The SMT process-proof loop of ``bin/verify_smt_process.py`` on the
+    card: build the circuit at n_levels=256 and standard_recursion_config,
+    then prove and verify each of five seeded steps (insert into the empty
+    tree, insert beside a leaf, update, remove, no-op).  The circuit's digest
+    and the first proof's hash must equal the JAX-made golden's, a tampered
+    proof must be rejected,
+    and the first step proved again in the fused-sponge wiring must give the
+    same proof.  Returns the launches of each proof."""
+    from intmax_zkp_core_tpu_torch.bin import verify_smt_process as vsp
+    from intmax_zkp_core_tpu_torch.models.sparse_merkle_tree import SparseMerkleTree
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+
+    with open(golden_path) as f:
+        golden, digest_line = f.read().splitlines()[:2]
+    golden = golden.split()[0]
+    golden_digest = tuple(int(x) for x in digest_line.split()[1:5])
+    t0 = time.perf_counter()
+    data, target = vsp.build_circuit(SMT_LEVELS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if tuple(data.common.circuit_digest) != golden_digest:
+        raise RuntimeError("the SMT circuit's digest differs from the JAX package's")
+    if data.common.n != 1 << SMT_LOG_ROWS:  # the rows its kernels were held at
+        raise RuntimeError(f"the SMT circuit has {data.common.n} rows, not 2^{SMT_LOG_ROWS}")
+    log("smt", n_levels=SMT_LEVELS, rows=data.common.n, records=len(data.prover.generators),
+        circuit_digest="equal", build_s=round(build_s, 3), launches_build={k: n for k, n in pc.launch_counts().items() if n})
+    tree = SparseMerkleTree()
+    per_proof, first = [], None
+    for i, (key, value) in enumerate(vsp.role_cycle(SMT_STEPS, SMT_LEVELS, SMT_SEED)):
+        process_proof, pw = vsp.step(tree, target, key, value)
+        before, timings = pc.launch_counts(), {}
+        t0 = time.perf_counter()
+        proof = data.prove(pw, timings=timings)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after = pc.launch_counts()
+        data.verify(proof)
+        t2 = time.perf_counter()
+        expect_per_proof(before, after, "SMT")
+        expect_ntt_launches(before, after, data.common, "SMT")
+        if proof.public_inputs != list(process_proof.old_root) + list(process_proof.new_root):
+            raise RuntimeError("the SMT proof's public inputs are not the old and new roots")
+        launches = {k: after[k] - before[k] for k in after if after[k] - before[k]}
+        per_proof.append(launches)
+        log("smt-proof", step=i, role=process_proof.fnc.name, witness_s=round(timings["witness"], 4),
+            prove_s=round(t1 - t0, 3), verify_s=round(t2 - t1, 3), launches=launches,
+            **{k: round(v, 4) for k, v in timings.items() if k != "witness"})
+        if i == 0:
+            first = (pw, proof)
+    pw, proof = first
+    expect_rejected(data, proof)
+    digest = proof_sha256(proof)
+    if digest != golden:
+        raise RuntimeError(f"SMT proof hash {digest} != golden {golden}")
+    before = pc.launch_counts()
+    fused = data.prove(pw, fused_sponge=True)
+    fused_launches = {k: n - before[k] for k, n in pc.launch_counts().items() if n - before[k]}
+    if proof_sha256(fused) != digest:
+        raise RuntimeError("the SMT proof differs between the sponge wirings")
+    log("smt-done", proofs=len(per_proof), verified=True, tampered="rejected", sha256=digest,
+        golden="equal", fused_wiring="equal", fused_launches=fused_launches)
+    return per_proof
 
 
 # The __global__ function behind each wrapper, by the name the profiler sees.
@@ -1132,11 +1321,13 @@ def main() -> int:
     else:
         log("sass", library=os.path.relpath(cb.LIBRARY), **sass_counts(cb.LIBRARY, cuobjdump))
 
-    # ---- 3. kernels against their plain versions ----
+    # ---- 3. kernels against their plain versions; the host C++ ----
     rng = np.random.default_rng(20240917)
-    err = phase_kernels(device, rng)
-    err.update(phase_perm_kernels(device, rng, args.log_rows))
-    err.update(phase_gate_ntt_kernels(device, rng, args.log_rows))
+    phase_native(rng)
+    paths = {"chain": args.log_rows, "smt": SMT_LOG_ROWS}  # each main path's log2 rows
+    err = phase_kernels(device, rng, paths)
+    err.update(phase_perm_kernels(device, rng, paths))
+    err.update(phase_gate_ntt_kernels(device, rng, paths))
     timing = phase_timings(device, rng)
     timing.update(phase_perm_timings(device, rng, args.log_rows))
     timing.update(phase_gate_ntt_timings(device, rng, args.log_rows))
@@ -1146,14 +1337,25 @@ def main() -> int:
                           "intmax_zkp_core_tpu_torch", "golden", "zkdsa_standard.sha256")
     pc.reset_launch_counts()
     phase_zkdsa(device, golden)
-    chain = phase_chain(device, args.log_rows)
+    chain, chain_timings = phase_chain(device, args.log_rows)
     main_counts = pc.launch_counts()  # read just after the main path
     if len(main_counts) != 8:
         raise RuntimeError(f"expected the counts of eight kernels, got {main_counts}")
     for name, count in main_counts.items():
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
-    phase_chain_plain(*chain)  # comparison only: after the counts were read
+    # the SMT path, its counts set to 0 just before it and read just after
+    pc.reset_launch_counts()
+    smt_per_proof = phase_smt(os.path.join(os.path.dirname(golden),
+                                           "smt_process_256_standard.sha256"))
+    smt_counts = pc.launch_counts()
+    for name, count in smt_counts.items():
+        if count <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the SMT path")
+    log("smt-launches", path=smt_counts, per_proof=smt_per_proof[0])
+    # comparisons only: after the counts were read
+    phase_chain_witness(*chain[:3], *chain_timings)
+    phase_chain_plain(*chain)
     per_proof = phase_kernel_time(*chain[:3])
 
     # ---- 6. the record ----
@@ -1175,7 +1377,8 @@ def main() -> int:
         wiring = "fused" if name == "hash_no_pad_cuda" else "chained"
         kernels.append(
             {"name": name, "route": "cuda", "source": csrc + source, "replaces": ref + replaces,
-             "launches": main_counts[name], "max_abs_err": err[name],
+             "launches": main_counts[name], "launches_smt": smt_counts[name],
+             "max_abs_err": err[name],
              "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": t["bound_by"], "library_ms": None,
              "bound_ms_as_computed": t["bound_ms_as_computed"], "shape": t["shape"],

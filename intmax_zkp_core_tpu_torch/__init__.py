@@ -11,8 +11,11 @@ its counterpart there; this package imports nothing of it.
 Layout:
   ops/       field arithmetic, Poseidon (plain + CUDA wrappers), NTT, Merkle
   csrc/      CUDA C++ sources of the kernels
+  native/    host C++ (g++ at first use): scalar Poseidon, the witness fill
   engine/    proving system: circuit IR, prover, verifier, FRI, transcript
-  models/    application circuits (zkDSA and a Poseidon hash chain so far)
+  models/    application layer: zkDSA, a Poseidon hash chain, the dense and
+             sparse Merkle trees and their in-circuit gadgets
+  bin/       the reference's SMT loops as entry points
   utils/     hex codecs, wrapped digest types
 
 Device rule: an entry point takes ``device=None``, which means the CUDA

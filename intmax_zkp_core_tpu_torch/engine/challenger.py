@@ -1,7 +1,9 @@
 """Fiat-Shamir transcript: Poseidon duplex sponge (plonky2 ``Challenger``
 semantics: buffered observe, duplex on demand, squeeze from the back of the
-output buffer).  Host-side scalar — challenge derivation is a handful of
-permutations per proof, far off the hot path."""
+output buffer).  Host-side scalar: each duplex is one permutation through
+the host C++ (``ops.poseidon.permute_host``).  A proof's transcript is a few
+hundred of them; the verifier replays it beside thousands of Merkle-path
+hashes, which go through the same native code (``ops.poseidon.hash_no_pad_s``)."""
 
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class Challenger:
         for i, x in enumerate(self.input_buffer):
             self.sponge_state[i] = x
         self.input_buffer.clear()
-        self.sponge_state = ps.permute_s(self.sponge_state)
+        self.sponge_state = ps.permute_host(self.sponge_state)
         self.output_buffer = list(self.sponge_state[:RATE])
 
     def get_challenge(self) -> int:

@@ -2,8 +2,9 @@
 argument -> quotient -> FRI opening proof.
 
 This is the counterpart of ``CircuitData::prove``.  All polynomial work is
-batched tensor code on the device; host code only orchestrates and runs the
-Fiat-Shamir transcript.  When the circuit lives on the card, every NTT runs
+batched tensor code on the device; on the host, the witness fill runs in C++
+(``native/witness_native.cpp``) and the Fiat-Shamir transcript through the
+host C++ permutation, and Python only orchestrates.  When the circuit lives on the card, every NTT runs
 through the NTT kernel (``ops/ntt_cuda.py``, reached through ``ops/ntt.py``),
 every Merkle commitment hashes through the Poseidon CUDA kernels
 (``ops/poseidon_cuda.py``), the permutation argument runs through four more:
@@ -27,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..native.witness import native_fill
 from ..ops import fri_init_cuda as fi
 from ..ops import gate_quotient_cuda as gqc
 from ..ops import goldilocks as gl
@@ -343,9 +345,35 @@ def get_circuit_kernels(pd, device):
 
 
 def compute_wire_matrix(pd, pw: PartialWitness):
-    """Run witness generation (the Python ``WitnessFill`` generator
-    fixpoint) and assemble the [num_wires, n] uint64 matrix plus public
-    inputs (shared by prove() and check_witness())."""
+    """Run witness generation and assemble the [num_wires, n] uint64 matrix
+    plus public inputs (shared by prove() and check_witness()).
+
+    The generator fixpoint runs in the host C++ engine
+    (``native/witness_native.cpp`` through ``native.witness.native_fill``) and
+    the matrix assembles with numpy scatters over the circuit's fill plan,
+    built at the first call and cached on ``pd``.  Its plain version is
+    ``compute_wire_matrix_plain``."""
+    cfg = pd.common.config
+    n = pd.common.n
+    values, has, wrows, wcols, wvals, plan = native_fill(pd, pw)
+    missing = ~has[plan.place_roots].astype(bool)
+    if missing.any():
+        i = int(np.nonzero(missing)[0][0])
+        raise AssertionError(
+            "unset wire target at place "
+            f"{(int(plan.place_rows[i]), int(plan.place_cols[i]))}"
+        )
+    wires = np.zeros((cfg.num_wires, n), dtype=np.uint64)
+    wires[plan.place_cols, plan.place_rows] = values[plan.place_roots]
+    wires[wcols, wrows] = wvals
+    assert has[plan.pi_roots].all(), "unset public input"
+    public_inputs = [int(v) for v in values[plan.pi_roots]]
+    return wires, public_inputs
+
+
+def compute_wire_matrix_plain(pd, pw: PartialWitness):
+    """``compute_wire_matrix`` through the Python ``WitnessFill``: the plain
+    version, for comparisons only."""
     cfg = pd.common.config
     n = pd.common.n
     fill = WitnessFill(pd)

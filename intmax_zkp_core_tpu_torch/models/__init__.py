@@ -1,1 +1,2 @@
-"""Application layer (so far: the zkDSA signature circuit and a Poseidon hash chain)."""
+"""Application layer: the zkDSA signature circuit, a Poseidon hash chain, the dense
+Merkle tree and the sparse Merkle tree with their in-circuit gadgets."""

@@ -31,6 +31,7 @@ import operator
 
 import torch
 
+from ..native.loader import native_hash_no_pad, native_permute_batch
 from . import goldilocks as gl
 from .poseidon_constants import (
     ALL_ROUND_CONSTANTS,
@@ -184,8 +185,10 @@ def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Scalar (Python int) reference implementation — host-side witness
-# generation, the Fiat-Shamir transcript and exactness tests.
+# Scalar (Python int) functions — host-side witness generation, the
+# Fiat-Shamir transcript and exactness tests.  ``permute_s`` and
+# ``hash_n_to_m_no_pad_plain_s`` are exact Python; ``permute_host`` and
+# ``hash_n_to_m_no_pad_s`` call the host C++ (``native/``).
 # ---------------------------------------------------------------------------
 
 _P = gl.P_INT
@@ -211,7 +214,23 @@ def permute_s(state):
     return state
 
 
+def permute_host(state):
+    """Scalar permutation through the host C++ (``native/poseidon_native.cpp``):
+    the transcript's duplex.  ``permute_s`` is its plain version."""
+    return [int(x) for x in native_permute_batch([state])[0]]
+
+
 def hash_n_to_m_no_pad_s(inputs, num_outputs=4):
+    """Scalar sponge; four outputs (every digest) go through the host C++
+    sponge, other counts through ``hash_n_to_m_no_pad_plain_s``."""
+    if num_outputs == 4:
+        return list(native_hash_no_pad([int(x) for x in inputs]))
+    return hash_n_to_m_no_pad_plain_s(inputs, num_outputs)
+
+
+def hash_n_to_m_no_pad_plain_s(inputs, num_outputs=4):
+    """The sponge in Python ints over ``permute_s``: the plain version of the
+    host C++ sponge."""
     inputs = [int(x) for x in inputs]
     state = [0] * SPONGE_WIDTH
     for start in range(0, len(inputs), SPONGE_RATE):

@@ -2,9 +2,10 @@
 
 Witness generation (SMT updates, block assembly) is pointer-chasing host
 logic; bulk hashing (tree builds, prover commitments) uses the batched
-device functions in ``ops.poseidon``.  The scalar permutations here are the
-exact Python implementation (``ops.poseidon.*_s``); a small cache keeps the
-ubiquitous zero-subtree chains free.
+device functions in ``ops.poseidon``.  The scalar hashes here go through the
+host C++ sponge (``native/poseidon_native.cpp``, through
+``ops.poseidon.hash_no_pad_s``); a small cache keeps the ubiquitous
+zero-subtree chains free.
 """
 
 from __future__ import annotations

@@ -279,3 +279,45 @@ def test_fri_initial_cuda_zero_norms_and_edge_lanes(card):
     got = fi.fri_initial_cuda(*args)
     assert pc.launch_counts()["fri_initial_cuda"] == before + 1
     assert torch.equal(got, fi.fri_initial_plain(*args)) and _canonical(got)
+
+
+@pytest.mark.cuda
+def test_smt_process_proof_at_depth_256_equals_golden(card):
+    """The first proof of the SMT process loop at n_levels=256 and
+    standard_recursion_config, made on the card, equals the JAX package's."""
+    import hashlib
+    import json
+    import pathlib
+
+    from intmax_zkp_core_tpu_torch.bin import verify_smt_process as vsp
+    from intmax_zkp_core_tpu_torch.engine.serde import proof_to_json
+    from intmax_zkp_core_tpu_torch.models.sparse_merkle_tree import SparseMerkleTree
+
+    golden, digest = (pathlib.Path(__file__).resolve().parent.parent / "intmax_zkp_core_tpu_torch"
+                      / "golden" / "smt_process_256_standard.sha256").read_text().splitlines()[:2]
+    data, target = vsp.build_circuit(256, device=card)
+    assert data.common.n == 4096
+    assert tuple(data.common.circuit_digest) == tuple(int(x) for x in digest.split()[1:5])
+    key, value = vsp.role_cycle(5, 256, seed=1)[0]
+    _, pw = vsp.step(SparseMerkleTree(), target, key, value)
+    proof = data.prove(pw)
+    data.verify(proof)
+    sha = hashlib.sha256(json.dumps(proof_to_json(proof), sort_keys=True).encode()).hexdigest()
+    assert sha == golden.split()[0]
+
+
+@pytest.mark.cuda
+def test_chain_native_fill_equals_python_fill(card):
+    """The native witness fill against the Python WitnessFill on a 2^11-row
+    chain at standard_recursion_config."""
+    from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig
+    from intmax_zkp_core_tpu_torch.engine.prover import compute_wire_matrix, compute_wire_matrix_plain
+    from intmax_zkp_core_tpu_torch.models.hash_chain import links_for_rows, make_hash_chain_circuit
+    from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut
+
+    chain = make_hash_chain_circuit(links_for_rows(11), CircuitConfig.standard_recursion_config(),
+                                    device=card)
+    pw = chain.witness(HashOut.from_u64(7), HashOut.from_u64(0xC0FFEE))
+    wires, pi = compute_wire_matrix(chain.data.prover, pw)
+    wires_py, pi_py = compute_wire_matrix_plain(chain.data.prover, pw)
+    assert (wires == wires_py).all() and pi == pi_py

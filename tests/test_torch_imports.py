@@ -46,8 +46,23 @@ def test_port_has_its_modules():
         "engine/algebra.py", "engine/gates.py", "engine/circuit.py", "engine/fri.py",
         "engine/prover.py", "engine/verifier.py", "engine/serde.py", "engine/carry.py",
         "models/zkdsa/circuits.py",
+        "native/__init__.py", "native/loader.py", "native/witness.py",
+        "models/merkle_tree/__init__.py", "models/merkle_tree/tree.py",
+        "models/merkle_tree/gadgets.py", "models/sparse_merkle_tree/__init__.py",
+        "models/sparse_merkle_tree/node_data.py", "models/sparse_merkle_tree/proofs.py",
+        "models/sparse_merkle_tree/tree.py", "models/sparse_merkle_tree/layered.py",
+        "models/sparse_merkle_tree/storage_layout.py",
+        "models/sparse_merkle_tree/gadgets/__init__.py",
+        "models/sparse_merkle_tree/gadgets/common.py",
+        "models/sparse_merkle_tree/gadgets/verify.py",
+        "models/sparse_merkle_tree/gadgets/process.py",
+        "bin/__init__.py", "bin/verify_smt_process.py", "bin/smt_verifier.py",
     ):
         assert want in have, want
+    # the scan below covers every package directory, bin/ and native/ among them
+    assert {p.split("/")[0] for p in have} >= {"ops", "engine", "models", "utils", "bin", "native"}
+    for source in ("poseidon_native.cpp", "witness_native.cpp"):
+        assert (PORT / "native" / source).is_file(), source
     for source in ("goldilocks.cuh", "poseidon_round.cuh", "runtime.cu", "poseidon.cu",
                    "perm_columns.cu", "perm_quotient.cu", "zinv_mul.cu", "fri_init.cu",
                    "gate_quotient.cu", "ntt.cu"):
