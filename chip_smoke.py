@@ -25,17 +25,28 @@ A second path runs after the chain: the SMT process-proof loop of
 ``bin/verify_smt_process.py`` at n_levels=256 and
 ``standard_recursion_config`` (``[smt]``), whose first proof must hash to
 ``golden/smt_process_256_standard.sha256`` (made by the JAX package).  The
-launch counts are set to 0 before each path and read after it.  Every kernel
-is held against its plain version at the shapes of both paths (the chain's
-2^N rows and the SMT circuit's 2^12, LDE 8x); each such comparison's line
-names its path.
+launch counts are set to 0 before each path and read after it.
+
+A third path, the user-tx path, runs the block flow's first stages
+(``models/rollup/block_flow.py::prove_user_txs_and_signatures`` at
+``RollupConstants.test_constants()``): the user-transaction circuit of
+4,096 rows, its three witnesses proved as one batch (``prove_batch``, K = 3,
+``[user-tx]``), the proposal, and the two signatures as a second batch, once
+in each sponge wiring (``[signatures]``).  Every batch proof must equal a
+sequential proof of its witness and the hash in
+``golden/user_tx_flow_standard.sha256`` (made by the JAX package), and K3 -
+K7 must be launched as often per batch as per single proof.
+
+Every kernel is held against its plain version at the shapes of each path
+(the chain's 2^N rows, the SMT circuit's 2^12, LDE 8x, and the K = 3 user-tx
+batch's); each such comparison's line names its path.
 
 Two lines describe the kernels' code and where the device time of a proof
 goes: ``[sass]`` counts the SASS instructions, IMAD-class instructions,
 registers and stack bytes of every kernel of the library (``cuobjdump``),
 and ``[kernel-time]``, after one more chain proof of each sponge wiring
-under ``torch.profiler``, gives each kernel's device milliseconds and
-launches per proof.
+and one more user-tx batch and proof under ``torch.profiler``, gives each
+kernel's device milliseconds and launches per proof or batch.
 
 In the kernels line ``max_abs_err`` is the largest absolute difference
 between a kernel's output and its plain version's, taken on the int64 bit
@@ -921,16 +932,18 @@ def phase_gate_ntt_timings(device, rng, log_rows):
 
 
 def ntt_launches_per_proof(common) -> int:
-    """``ntt_cuda`` launches of one proof, by its call sites: the intt and the
-    coset LDE's ntt of the wires' and of the Z / partial-product commitments,
-    the intt of quotient_finish and the ntt of the quotient commitment (at
-    the LDE size), and the two coset_ilde of the FRI final polynomial."""
+    """``ntt_cuda`` launches of one proof, or of one batch of proofs (the
+    proof axis folds into the rows of each call), by its call sites: the
+    intt and the coset LDE's ntt of the wires' and of the Z / partial-product
+    commitments, the intt of quotient_finish and the ntt of the quotient
+    commitment (at the LDE size), and the one coset_ilde of the FRI final
+    polynomials' two components."""
     from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
 
     fri = common.config.fri
     n, lde_n = common.n, common.n * fri.blowup
     final_n = min(lde_n, fri.final_poly_len * fri.blowup)
-    return (2 * nc.launches_for(n) + 4 * nc.launches_for(lde_n) + 2 * nc.launches_for(final_n))
+    return 2 * nc.launches_for(n) + 4 * nc.launches_for(lde_n) + nc.launches_for(final_n)
 
 
 def expect_ntt_launches(before: dict, after: dict, common, what: str) -> int:
@@ -1223,6 +1236,256 @@ def phase_smt(golden_path) -> list:
     return per_proof
 
 
+USER_TX_LOG_ROWS, USER_TX_K = 12, 3  # the flagship's user-tx circuit (4,096 rows) and its batch
+
+
+def ntt_batch_shapes(log_rows, K):
+    """The NTTs of one batch of K proofs of 2^log_rows rows at the standard
+    recursion config: each of ``ntt_chain_shapes`` over K times the rows (the
+    proof axis folds into the rows of each call), and the one coset_ilde of
+    the FRI final polynomials' two components, [2K, 32 * 8]."""
+    shapes = {name: (K * B, n, inverse)
+              for name, (B, n, inverse) in ntt_chain_shapes(log_rows).items()}
+    shapes["ntt_cuda_final_poly"] = (2 * K, 32 * 8, True)
+    return shapes
+
+
+def phase_user_tx_kernels(device, rng, log_rows, K):
+    """Every kernel against its plain version at the shapes the K-proof
+    user-tx batch gives it (n = 2^log_rows, L = 8 n, 135 wires, R = 80,
+    C = 2), each line tagged ``path=user_tx``: K1 on the chained sponge's
+    states of K trees' leaves [K, L, 12] and first level [K, L/2, 12]; K1b on
+    the leaves of K trees as the fused wiring hands them over (the transposed
+    [K, w, L] LDE copied to [K L, w], w = 135, 24, 16) and on the level pairs
+    [K L/2, 8]; K3 on the [K, 135, n] wire matrix, and on edge lanes with a
+    zero g total; K5 over the [K, 135, L] LDE, K4 on [K, 135, L], both on
+    random and edge lanes; K6 on the [K C, L] numerators (and as [K, C, L])
+    with planted zeros; K7 on [K, L, 2], random and with planted zero norms;
+    K2 at every (rows, length) of the batch proof (``ntt_batch_shapes``), both
+    directions, random and edge lanes, with round trips.  Every output lane
+    of K2 - K7 must be below p."""
+    from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
+    from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
+    from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
+    from intmax_zkp_core_tpu_torch.ops import ntt as nt
+    from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
+    from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
+    from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+    from intmax_zkp_core_tpu_torch.ops import zinv_mul_cuda as zm
+
+    n, L, R, C, W, blowup = 1 << log_rows, 1 << (log_rows + 3), 80, 2, 135, 8
+    names = ("permute_cuda", "hash_no_pad_cuda") + CALLED_ONCE_PER_PROOF + ("ntt_cuda",)
+    worst, err = dict.fromkeys(names, 0), dict.fromkeys(names, 0.0)
+
+    def hold(kernel, got, want, canonical=True, **fields):
+        bad = sum(mismatches(g, w) for g, w in zip(got, want))
+        if canonical and not all(all_canonical(g) for g in got):
+            raise RuntimeError(f"{kernel} wrote a lane not below p: {fields}")
+        worst[kernel] = max(worst[kernel], bad)
+        err[kernel] = max([err[kernel]] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        log("kernels", kernel=kernel, **fields, path="user_tx", mismatches=bad)
+
+    for shape in ((K, L, 12), (K, L // 2, 12)):
+        x = rand_field(rng, shape, device)
+        hold("permute_cuda", [pc.permute_cuda(x)], [pc.permute_plain(x)], canonical=False,
+             plain="ops.poseidon.permute", shape=list(shape))
+    for width in (135, 24, 16):
+        x = rand_field(rng, (K, width, L), device).transpose(1, 2).reshape(K * L, width)
+        hold("hash_no_pad_cuda", [pc.hash_no_pad_cuda(x)], [pc.hash_no_pad_plain(x)],
+             canonical=False, plain="ops.poseidon.hash_no_pad", width=width, B=K * L,
+             leaves="K trees, copied from the transposed LDE")
+    x = rand_field(rng, (K * L // 2, 8), device)
+    hold("hash_no_pad_cuda", [pc.hash_no_pad_cuda(x)], [pc.hash_no_pad_plain(x)], canonical=False,
+         plain="ops.poseidon.hash_no_pad", width=8, B=K * L // 2)
+    del x
+
+    args = perm_columns_inputs(rng, device, K, C, R, n, extra_rows=W - R)
+    hold("perm_columns_cuda", pcol.perm_columns_cuda(*args), pcol.perm_columns_plain(*args),
+         plain="perm_columns_plain", K=K, C=C, R=R, n=n, wire_rows=W)
+    args, zero_at = perm_columns_edge_inputs(rng, device, K, C, R, n)
+    hold("perm_columns_cuda", pcol.perm_columns_cuda(*args), pcol.perm_columns_plain(*args),
+         plain="perm_columns_plain", K=K, C=C, R=R, n=n, inputs="edge lanes",
+         zero_g_total_at=zero_at)
+    for edge in (False, True):
+        args = perm_quotient_inputs(rng, device, K, C, R, L, extra_rows=W - R, edge=edge)
+        hold("perm_quotient_cuda", pq.perm_quotient_cuda(*args, blowup),
+             pq.perm_quotient_plain(*args, blowup), plain="perm_quotient_plain", K=K, C=C, R=R,
+             L=L, wire_rows=W, inputs="edge lanes" if edge else "random")
+        field = edge_field if edge else rand_field
+        args = [field(rng, (K, W, L), device), field(rng, (L,), device),
+                field(rng, (K, C), device), field(rng, (K, C, L), device),
+                field(rng, (K, C), device)]
+        hold("poseidon_gate_quotient_cuda", gqc.poseidon_gate_quotient_cuda(*args),
+             gqc.poseidon_gate_quotient_plain(*args), plain="poseidon_gate_quotient_plain",
+             K=K, C=C, L=L, wire_rows=W, inputs="edge lanes" if edge else "random")
+        del args
+
+    batch = batch_points(zm.batch_layout(), L)
+    span = zm.batch_layout()[0] * zm.batch_layout()[1]
+    for lead in ((K * C,), (K, C)):
+        acc, z_h = edge_field(rng, lead + (L,), device), edge_field(rng, (L,), device)
+        z_h[[batch[0], batch[len(batch) // 2], batch[-1]]] = 0
+        z_h[[t + 2 for t in batch]] = 0
+        z_h[2 * span : 3 * span] = 0
+        got = zm.zinv_mul_cuda(acc, z_h)
+        hold("zinv_mul_cuda", [got], [zm.zinv_mul_plain(acc, z_h)], plain="zinv_mul_plain",
+             rows=list(lead), L=L, inputs="edge lanes, planted zeros", thread_zeros_at=batch,
+             block_zeros_from=2 * span, to=3 * span)
+        if not torch.equal(got != 0, (acc != 0) & (z_h != 0)):
+            raise RuntimeError("zinv_mul_cuda: a zero of z_h reached another lane")
+    # Z_H as the prover has it: `blowup` distinct values along the coset
+    acc = rand_field(rng, (K, C, L), device)
+    z_h = rand_field(rng, (blowup,), device).repeat(L // blowup)
+    hold("zinv_mul_cuda", [zm.zinv_mul_cuda(acc, z_h)], [zm.zinv_mul_plain(acc, z_h)],
+         plain="zinv_mul_plain", rows=[K, C], L=L, z_h="8 distinct values")
+
+    args = fri_initial_inputs(rng, device, K, L)
+    hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
+         plain="fri_initial_plain", K=K, L=L)
+    batch = batch_points(fi.batch_layout(), L)
+    xs = gl.from_u64(rng.integers(0, P, size=L, dtype=np.uint64), device)  # distinct points
+    args = [edge_field(rng, (K, L, 2), device), edge_field(rng, (K, L, 2), device), xs]
+    args += [edge_field(rng, (K, 2), device) for _ in range(4)]
+    zeros = []
+    for k in range(K):
+        i = (0, len(batch) // 2, len(batch) - 1)[k % 3]
+        args[3][k] = torch.stack([xs[batch[i]], xs.new_zeros(())])
+        args[4][k] = torch.stack([xs[batch[i] + 1], xs.new_zeros(())])
+        zeros += [batch[i], batch[i] + 1]
+    hold("fri_initial_cuda", [fi.fri_initial_cuda(*args)], [fi.fri_initial_plain(*args)],
+         plain="fri_initial_plain", K=K, L=L, inputs="edge lanes, planted zero norms",
+         zero_norms_at=zeros)
+    del args
+
+    for name, (B, length, inverse) in ntt_batch_shapes(log_rows, K).items():
+        x = rand_field(rng, (B, length), device)
+        for inv in (False, True):
+            hold("ntt_cuda", [nc.ntt_cuda(x, inv)], [nc.ntt_plain(x, inv)],
+                 plain="ops.ntt._ntt_impl", name=name, B=B, n=length, inverse=inv)
+        hold("ntt_cuda", [nt.intt(nt.ntt(x))], [x], against="intt(ntt(x)) == x", B=B, n=length)
+        x = edge_field(rng, (B, length), device)
+        hold("ntt_cuda", [nc.ntt_cuda(x, inverse)], [nc.ntt_plain(x, inverse)],
+             plain="ops.ntt._ntt_impl", name=name, B=B, n=length, inverse=inverse,
+             inputs="edge lanes")
+        del x
+    torch.cuda.synchronize()
+    if any(worst.values()) or any(err.values()):
+        raise RuntimeError(f"kernel disagrees with its plain version: {worst} {err}")
+    return err
+
+
+def read_flow_golden(path):
+    """(the user-tx circuit's digest, the five proofs' hashes) of
+    ``golden/user_tx_flow_standard.sha256``."""
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines() if ln and not ln.startswith("#")]
+    tag, *limbs = lines[0].split()[:5]
+    if tag != "circuit_digest":
+        raise RuntimeError(f"{path}: no circuit_digest line")
+    return tuple(int(x) for x in limbs), [ln.split()[0] for ln in lines[1:6]]
+
+
+def launch_diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)}
+
+
+def phase_user_tx(golden_path):
+    """The block flow's first stages on the card
+    (``models/rollup/block_flow.py::prove_user_txs_and_signatures`` at
+    ``RollupConstants.test_constants()`` and ``standard_recursion_config``):
+    the user-transaction circuit (4,096 rows, LDE 2^15), the K = 3 batch of
+    sender 1's, sender 2's (its deposit merge) and the default transaction in
+    the chained wiring, the proposal, the zkDSA circuit and the K = 2 batch of
+    the signatures.  Each user-tx proof must equal a sequential ``prove`` of
+    its witness on the card, decode to the public inputs its witness gives,
+    with tx_hash = two_to_one(diff_root, nonce), verify, have a tampered copy
+    rejected and hash to the golden.  Returns the stages, the flow's
+    timings and the golden hashes of the signatures."""
+    from intmax_zkp_core_tpu_torch.models.rollup import block_flow as bf
+    from intmax_zkp_core_tpu_torch.models.transaction.circuits import (
+        MergeAndPurgeTransitionPublicInputs,
+    )
+    from intmax_zkp_core_tpu_torch.utils.poseidon_host import two_to_one
+
+    golden_digest, golden = read_flow_golden(golden_path)
+    timings = {}
+    t0 = time.perf_counter()
+    stages = bf.prove_user_txs_and_signatures(timings=timings)
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    data = stages.user_tx_circuit.data
+    common = data.common
+    if tuple(common.circuit_digest) != golden_digest:
+        raise RuntimeError("the user-tx circuit's digest differs from the JAX package's")
+    K = len(stages.user_tx_proofs)
+    if common.n != 1 << USER_TX_LOG_ROWS or K != USER_TX_K:
+        raise RuntimeError(f"the user-tx batch is {K} proofs of {common.n} rows, not "
+                           f"{USER_TX_K} of 2^{USER_TX_LOG_ROWS}")
+    sequential, sequential_s = [], []
+    for pw in stages.user_tx_witnesses:
+        t0 = time.perf_counter()
+        sequential.append(data.prove(pw))
+        torch.cuda.synchronize()
+        sequential_s.append(round(time.perf_counter() - t0, 3))
+    verify_s = []
+    for k, (proof, sp) in enumerate(zip(stages.user_tx_proofs, sequential)):
+        if proof != sp:
+            raise RuntimeError(f"user-tx batch proof {k} differs from the sequential proof")
+        pis = MergeAndPurgeTransitionPublicInputs.decode(proof.public_inputs)
+        if pis != stages.user_tx_public_inputs[k]:
+            raise RuntimeError(f"user-tx proof {k}'s public inputs are not its witness's")
+        if pis.tx_hash != two_to_one(pis.diff_root, stages.user_tx_nonces[k]):
+            raise RuntimeError(f"user-tx proof {k}: tx_hash != two_to_one(diff_root, nonce)")
+        t0 = time.perf_counter()
+        data.verify(proof)
+        verify_s.append(round(time.perf_counter() - t0, 3))
+        expect_rejected(data, proof)
+        if proof_sha256(proof) != golden[k]:
+            raise RuntimeError(f"user-tx proof {k} hash {proof_sha256(proof)} != golden {golden[k]}")
+    log("user-tx", rows=common.n, records=len(data.prover.generators),
+        gates=",".join(common.gate_ids), circuit_digest="equal", K=K,
+        build_s=round(timings["build_user_tx_circuit"], 3),
+        state_setup_s=round(timings["state_setup"], 3),
+        batch_prove_s=round(timings["prove_user_txs"], 3), sequential_prove_s=sequential_s,
+        verify_s=verify_s, batch_equals_sequential=True, public_inputs="as the witnesses give",
+        tampered="rejected", golden="equal", flow_s=round(flow_s, 3))
+    log("user-tx-phases", wiring="chained", K=K,
+        **{k: round(v, 4) for k, v in timings["prove_user_txs_phases"].items()})
+    return stages, timings, golden[3:]
+
+
+def phase_signatures(stages, timings, golden):
+    """The K = 2 zkDSA batch of the flow's ``prove_signatures`` (chained
+    wiring) and the same batch once more in the fused wiring: both proofs of
+    each equal the sequential proofs and the golden, and verify; the fused
+    batch launches K1b."""
+    from intmax_zkp_core_tpu_torch.engine.prover import prove_batch
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+
+    data = stages.zkdsa_circuit.data
+    torch.cuda.synchronize()
+    before, t0 = pc.launch_counts(), time.perf_counter()
+    fused = prove_batch(data, stages.signature_witnesses, fused_sponge=True)
+    torch.cuda.synchronize()
+    fused_s, fused_launches = time.perf_counter() - t0, launch_diff(pc.launch_counts(), before)
+    if fused_launches.get("hash_no_pad_cuda", 0) <= 0:
+        raise RuntimeError("the fused-wiring signature batch launched no hash_no_pad_cuda")
+    sequential = [data.prove(pw) for pw in stages.signature_witnesses]
+    for k, (chained, fused_k, sp) in enumerate(zip(stages.signature_proofs, fused, sequential)):
+        if not chained == fused_k == sp:
+            raise RuntimeError(f"signature proof {k} differs between the batches and sequential")
+        if proof_sha256(sp) != golden[k]:
+            raise RuntimeError(f"signature proof {k} hash {proof_sha256(sp)} != golden {golden[k]}")
+        data.verify(chained)
+    expect_rejected(data, stages.signature_proofs[0])
+    log("signatures", K=len(fused), rows=data.common.n,
+        build_s=round(timings["build_zkdsa_circuit"], 3),
+        chained_batch_prove_s=round(timings["prove_signatures"], 3),
+        fused_batch_prove_s=round(fused_s, 3), batches_equal_sequential=True, golden="equal",
+        verified=True, tampered="rejected", fused_launches=fused_launches)
+
+
 # The __global__ function behind each wrapper, by the name the profiler sees.
 KERNEL_SYMBOLS = {
     "permute_kernel": "permute_cuda",
@@ -1238,15 +1501,23 @@ KERNEL_SYMBOLS = {
 }
 
 
-def _profiled_proof(circuit, seed, salt, fused: bool):
-    """One proof under torch.profiler (device activity only): device ms per
-    wrapper's kernel, profiler events per kernel, and the device ms of every
-    kernel of the proof (the port's and PyTorch's)."""
+def profiled_run(prove, **fields):
+    """``prove()`` under torch.profiler (device activity only), the launch
+    counts set to 0 just before it and read just after.  Fails unless the
+    profiler saw one event and some device time for every launch, and no
+    event of a kernel not launched.  Logs a ``[kernel-time]`` line with
+    ``fields``; returns what ``prove()`` gave and {kernel: {"ms", "launches"}}."""
     from torch.profiler import ProfilerActivity, profile
 
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        circuit.prove(seed, salt, fused_sponge=fused)
+        result = prove()
         torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in pc.launch_counts().items() if n}
     ms, events, all_ms = {}, {}, 0.0
     for ev in prof.key_averages():
         us = ev.device_time_total
@@ -1255,33 +1526,52 @@ def _profiled_proof(circuit, seed, salt, fused: bool):
         if name:
             ms[name] = ms.get(name, 0.0) + us / 1e3
             events[name] = events.get(name, 0) + ev.count
-    return ms, events, all_ms
+    if events != launches:
+        raise RuntimeError(f"{fields}: profiler events {events} != launches {launches}")
+    rows = {k: {"ms": round(ms[k], 4), "launches": n} for k, n in launches.items()}
+    if not all(row["ms"] > 0 for row in rows.values()):
+        raise RuntimeError(f"the profiler saw no device time for a launched kernel: {rows}")
+    log("kernel-time", **fields, source="torch.profiler", prove_s=round(wall, 3),
+        device_ms_all_kernels=round(all_ms, 3), events_equal_launches=True, **rows)
+    return result, rows
 
 
 def phase_kernel_time(circuit, seed, salt) -> dict:
     """Device milliseconds per proof of each kernel: one more chain proof of
-    each wiring under torch.profiler, summed by kernel name, beside the
-    launches counted in that proof (the counts set to 0 just before it and
-    read just after).  Fails unless the profiler saw one event and some
-    device time for every launch, and no event of a kernel not launched."""
-    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+    each wiring under ``profiled_run``, beside the launches counted in it."""
+    return {wiring: profiled_run(lambda: circuit.prove(seed, salt, fused_sponge=fused),
+                                 wiring=wiring)[1]
+            for wiring, fused in (("chained", False), ("fused", True))}
 
-    per_proof = {}
-    for wiring, fused in (("chained", False), ("fused", True)):
-        pc.reset_launch_counts()
-        t0 = time.perf_counter()
-        ms, events, all_ms = _profiled_proof(circuit, seed, salt, fused)
-        wall = time.perf_counter() - t0
-        launches = {k: n for k, n in pc.launch_counts().items() if n}
-        if events != launches:
-            raise RuntimeError(f"{wiring}: profiler events {events} != launches {launches}")
-        rows = {k: {"ms": round(ms[k], 4), "launches": n} for k, n in launches.items()}
-        if not all(row["ms"] > 0 for row in rows.values()):
-            raise RuntimeError(f"the profiler saw no device time for a launched kernel: {rows}")
-        per_proof[wiring] = rows
-        log("kernel-time", wiring=wiring, source="torch.profiler", prove_s=round(wall, 3),
-            device_ms_all_kernels=round(all_ms, 3), events_equal_launches=True, **rows)
-    return per_proof
+
+def phase_user_tx_kernel_time(stages) -> dict:
+    """Device milliseconds and launches of each kernel in one more user-tx
+    batch (``prove_batch`` of the flow's three witnesses, chained wiring)
+    and in one more sequential proof of its first witness, each under
+    ``profiled_run``.  Both must give the flow's proofs; K3 - K7 must be
+    launched as often per batch as per single proof, and K2 as the call
+    sites of a batch and of a proof both say."""
+    from intmax_zkp_core_tpu_torch.engine.prover import prove_batch
+
+    data, pws = stages.user_tx_circuit.data, stages.user_tx_witnesses
+    batch, per_batch = profiled_run(lambda: prove_batch(data, pws), path="user_tx", per="batch",
+                                    K=len(pws))
+    proof, per_proof = profiled_run(lambda: data.prove(pws[0]), path="user_tx", per="proof", K=1)
+    if batch != stages.user_tx_proofs or proof != stages.user_tx_proofs[0]:
+        raise RuntimeError("a profiled user-tx proof differs from the flow's")
+    count = lambda rows, name: rows.get(name, {}).get("launches")  # noqa: E731
+    for name, want in launches_per_proof().items():
+        if not count(per_batch, name) == count(per_proof, name) == want:
+            raise RuntimeError(f"{name}: {count(per_batch, name)} launches per batch, "
+                               f"{count(per_proof, name)} per proof, not {want}")
+    want = ntt_launches_per_proof(data.common)
+    if not count(per_batch, "ntt_cuda") == count(per_proof, "ntt_cuda") == want:
+        raise RuntimeError(f"ntt_cuda: {count(per_batch, 'ntt_cuda')} launches per batch, "
+                           f"{count(per_proof, 'ntt_cuda')} per proof, not {want}")
+    log("user-tx-launches", k3_to_k7="equal per batch and per proof",
+        k1_per_batch=count(per_batch, "permute_cuda"), k1_per_proof=count(per_proof, "permute_cuda"),
+        k2_per_batch=count(per_batch, "ntt_cuda"), k2_per_proof=count(per_proof, "ntt_cuda"))
+    return {"batch": per_batch, "proof": per_proof}
 
 
 def main() -> int:
@@ -1328,6 +1618,8 @@ def main() -> int:
     err = phase_kernels(device, rng, paths)
     err.update(phase_perm_kernels(device, rng, paths))
     err.update(phase_gate_ntt_kernels(device, rng, paths))
+    for name, e in phase_user_tx_kernels(device, rng, USER_TX_LOG_ROWS, USER_TX_K).items():
+        err[name] = max(err[name], e)
     timing = phase_timings(device, rng)
     timing.update(phase_perm_timings(device, rng, args.log_rows))
     timing.update(phase_gate_ntt_timings(device, rng, args.log_rows))
@@ -1353,10 +1645,22 @@ def main() -> int:
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the SMT path")
     log("smt-launches", path=smt_counts, per_proof=smt_per_proof[0])
+    # the user-tx path (the block flow's user-tx and signature batches), its
+    # counts set to 0 just before it and read just after
+    pc.reset_launch_counts()
+    stages, flow_timings, sig_golden = phase_user_tx(
+        os.path.join(os.path.dirname(golden), "user_tx_flow_standard.sha256"))
+    phase_signatures(stages, flow_timings, sig_golden)
+    user_tx_counts = pc.launch_counts()
+    for name, count in user_tx_counts.items():
+        if count <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the user-tx path")
+    log("user-tx-path-launches", path=user_tx_counts)
     # comparisons only: after the counts were read
     phase_chain_witness(*chain[:3], *chain_timings)
     phase_chain_plain(*chain)
     per_proof = phase_kernel_time(*chain[:3])
+    user_tx_time = phase_user_tx_kernel_time(stages)
 
     # ---- 6. the record ----
     csrc, ref = "intmax_zkp_core_tpu_torch/csrc/", "intmax_zkp_core_tpu/ops/"
@@ -1378,6 +1682,9 @@ def main() -> int:
         kernels.append(
             {"name": name, "route": "cuda", "source": csrc + source, "replaces": ref + replaces,
              "launches": main_counts[name], "launches_smt": smt_counts[name],
+             "launches_user_tx": user_tx_counts[name],
+             "launches_user_tx_batch": user_tx_time["batch"].get(name, {}).get("launches", 0),
+             "ms_per_user_tx_batch": user_tx_time["batch"].get(name, {}).get("ms"),
              "max_abs_err": err[name],
              "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": t["bound_by"], "library_ms": None,

@@ -52,63 +52,69 @@ class FriProof:
 
 
 def _fold_step(cur: torch.Tensor, inv2x: torch.Tensor, beta_arr: torch.Tensor) -> torch.Tensor:
-    """One FRI fold: cur [m, 2] -> [m/2, 2] via
-    f'(x^2) = (f(x)+f(-x))/2 + beta * (f(x)-f(-x))/(2x)."""
-    half = cur.shape[0] // 2
-    e_pos, e_neg = cur[:half], cur[half:]
+    """One FRI fold of K proofs' layers: cur [K, m, 2] -> [K, m/2, 2] via
+    f'(x^2) = (f(x)+f(-x))/2 + beta * (f(x)-f(-x))/(2x); beta_arr [K, 2]
+    holds each proof's challenge."""
+    half = cur.shape[1] // 2
+    e_pos, e_neg = cur[:, :half], cur[:, half:]
     s = gl.ext_add(e_pos, e_neg)  # f(x) + f(-x)
     d = gl.ext_sub(e_pos, e_neg)
     half_sum = gl.mul(s, gl.i64(pow(2, P - 2, P)))
     slope = gl.mul(d, inv2x[:, None])  # (f(x)-f(-x)) / (2x)
-    return gl.ext_add(half_sum, gl.ext_mul(slope, beta_arr.expand(slope.shape)))
+    return gl.ext_add(half_sum, gl.ext_mul(slope, beta_arr[:, None, :].expand(slope.shape)))
 
 
 def fold_layers(
     evals: torch.Tensor,
     shift: int,
     cfg: FriConfig,
-    challenger: Challenger,
+    challengers: list,
     fused_sponge: bool = False,
 ):
-    """Commit phase.  evals: [N, 2] ext values on coset shift*<w_N>.
+    """Commit phase of K proofs in lockstep.  evals: [K, N, 2] ext values on
+    coset shift*<w_N>; ``challengers`` holds each proof's transcript, which
+    observes its own caps and samples its own betas.
 
-    Returns (trees, final_poly, betas).  A FRI leaf is 4 u64 wide, which
-    ``hash_leaves`` passes through unhashed, so ``tree.levels[0]`` *is* the
-    ``[f(x_i), f(-x_i)]`` pair table (see ``query_rounds``).  Per layer the
-    only host synchronization is the cap transfer the Fiat-Shamir
-    observation needs.
+    Returns (trees, final_polys), each a list over the K proofs.  A
+    FRI leaf is 4 u64 wide, which ``hash_leaves`` passes through unhashed,
+    so ``tree.levels[0]`` *is* the ``[f(x_i), f(-x_i)]`` pair table (see
+    ``query_rounds``).  Per layer the K trees are built in one pass and the
+    only host synchronization is the transfer of their caps, which the
+    Fiat-Shamir observations need.
     """
     device = evals.device
-    trees = []
-    betas = []
+    K = evals.shape[0]
+    trees = [[] for _ in range(K)]
     cur = evals
     cur_shift = shift % P
-    while cur.shape[0] > cfg.final_poly_len * cfg.blowup:
-        m = cur.shape[0]
+    while cur.shape[1] > cfg.final_poly_len * cfg.blowup:
+        m = cur.shape[1]
         half = m // 2
         # commit current layer as (f(x), f(-x)) pairs
-        leaf = torch.cat([cur[:half], cur[half:]], dim=1)  # [half, 4]
+        leaf = torch.cat([cur[:, :half], cur[:, half:]], dim=2)  # [K, half, 4]
         cap_h = min(cfg.cap_height, (half - 1).bit_length())
-        tree = mk.device_merkle_tree(leaf, cap_h, fused_sponge=fused_sponge)
-        trees.append(tree)
-        challenger.observe_cap([tuple(int(x) for x in d) for d in tree.cap])
-        beta = challenger.get_extension_challenge()
-        betas.append(beta)
+        layer_trees = mk.device_merkle_trees_batch(leaf, cap_h, fused_sponge=fused_sponge)
+        betas = []
+        for proof_trees, tree, challenger in zip(trees, layer_trees, challengers):
+            proof_trees.append(tree)
+            challenger.observe_cap([tuple(int(x) for x in d) for d in tree.cap])
+            betas.append(challenger.get_extension_challenge())
         inv2x = _inv_2x_table(m.bit_length() - 1, cur_shift, device)
-        beta_arr = gl.from_u64(np.array(beta, dtype=np.uint64), device)
+        beta_arr = gl.from_u64(np.array(betas, dtype=np.uint64), device)
         cur = _fold_step(cur, inv2x, beta_arr)
         cur_shift = cur_shift * cur_shift % P
 
-    # final polynomial coefficients from remaining evals
-    rate_bits = cfg.rate_bits
-    # components independently: coset_ilde with current shift
-    c0 = nt.coset_ilde(cur[:, 0][None, :], rate_bits, cur_shift)[0]
-    c1 = nt.coset_ilde(cur[:, 1][None, :], rate_bits, cur_shift)[0]
-    c0, c1 = mk.fetch_arrays(c0, c1)
-    final_poly = [(int(a), int(b)) for a, b in zip(c0, c1)]
-    for c in final_poly:
-        challenger.observe_ext(c)
-    return trees, final_poly, betas
+    # final polynomial coefficients from the remaining evals: both extension
+    # components of all K proofs in one coset_ilde with the current shift
+    flat = torch.cat([cur[:, :, 0], cur[:, :, 1]], dim=0)  # [2K, final_n]
+    coeffs = mk.fetch_arrays(nt.coset_ilde(flat, cfg.rate_bits, cur_shift))[0]
+    final_polys = []
+    for k, challenger in enumerate(challengers):
+        final_poly = [(int(a), int(b)) for a, b in zip(coeffs[k], coeffs[K + k])]
+        for c in final_poly:
+            challenger.observe_ext(c)
+        final_polys.append(final_poly)
+    return trees, final_polys
 
 
 def grind_pow(

@@ -303,7 +303,8 @@ class PoseidonGate(Gate):
         return cs
 
     def eval_constraints_batched(self, wires, consts, public_hash):
-        """Vectorized batched evaluation over [L] wire tensors — identical
+        """Vectorized batched evaluation over wire tensors of one shape ([L],
+        or [K, L] for K proofs) — identical
         constraints to ``eval_constraints`` but built from tensor-level ops
         (stacked lanes, the MDS as a matrix product, each affine table row as
         one product over its basis and a halving sum).  Used by the prover's quotient; the
@@ -315,6 +316,7 @@ class PoseidonGate(Gate):
 
         device = wires[0].device
         rc_all = _round_constants(device)
+        point_dims = (1,) * wires[0].dim()  # broadcasts a per-lane table over the points
 
         def stack(cols):
             return torch.stack([c.expand(wires[0].shape) for c in cols])
@@ -323,7 +325,7 @@ class PoseidonGate(Gate):
             return _mds_layer(state, dim=0)  # state [12, L]
 
         def rc_vec(rnd):
-            return rc_all[rnd][:, None]
+            return rc_all[rnd].reshape((T,) + point_dims)
 
         # the affine tables' basis [Y_0..Y_11, x_0..x_21]; x_i is filled in as made
         basis = torch.empty((T + N_PARTIAL_ROUNDS,) + wires[0].shape, dtype=torch.int64,
@@ -336,7 +338,7 @@ class PoseidonGate(Gate):
             m = T + n_x
             coef = torch.tensor([[gl.i64(r[1 + j] % gl.P_INT) for j in range(m)] for r in rows],
                                 dtype=torch.int64, device=device)
-            t = gl.mul(basis[None, :m], coef[:, :, None])  # [rows, m, L]
+            t = gl.mul(basis[None, :m], coef.reshape(coef.shape + point_dims))  # [rows, m, ...]
             while t.shape[1] > 1:
                 if t.shape[1] % 2:
                     t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
@@ -344,7 +346,7 @@ class PoseidonGate(Gate):
                 t = gl.add(t[:, :half], t[:, half:])
             const = torch.tensor([gl.i64(r[0] % gl.P_INT) for r in rows], dtype=torch.int64,
                                  device=device)
-            return gl.add(const[:, None], t[:, 0])
+            return gl.add(const.reshape((-1,) + point_dims), t[:, 0])
 
         cs = []
         swap = wires[self.W_SWAP]

@@ -1,10 +1,24 @@
 """The Plonk-style prover: witness fill -> wire commitment -> permutation
 argument -> quotient -> FRI opening proof.
 
-This is the counterpart of ``CircuitData::prove``.  All polynomial work is
-batched tensor code on the device; on the host, the witness fill runs in C++
-(``native/witness_native.cpp``) and the Fiat-Shamir transcript through the
-host C++ permutation, and Python only orchestrates.  When the circuit lives on the card, every NTT runs
+This is the counterpart of ``CircuitData::prove``.  ``prove_batch`` proves
+K witnesses of one circuit in one device pass and ``prove`` is it at K = 1:
+every device phase runs over a leading proof axis K -- each kernel is called
+once per phase for all K proofs -- while each proof keeps its own host
+transcript (``engine/challenger.py``), observed and sampled in exactly the
+order of a single proof, so the K proofs are bit-identical to K ``prove``
+calls.  Per phase: the witness fill runs K times on the host into one
+[K, W, n] array; every iNTT and coset LDE folds the proof axis into the rows
+(one ``ntt_cuda`` call over K * S rows); the Merkle levels of the K trees of
+a commitment are hashed one call per level
+(``ops/merkle.py::device_merkle_trees_batch``); the FRI layers of the K
+proofs fold in lockstep.  The grind and the query rounds stay per proof, as
+each needs its own transcript's state.
+
+All polynomial work is batched tensor code on the device; on the
+host, the witness fill runs in C++ (``native/witness_native.cpp``) and the
+Fiat-Shamir transcript through the host C++ permutation, and Python only
+orchestrates.  When the circuit lives on the card, every NTT runs
 through the NTT kernel (``ops/ntt_cuda.py``, reached through ``ops/ntt.py``),
 every Merkle commitment hashes through the Poseidon CUDA kernels
 (``ops/poseidon_cuda.py``), the permutation argument runs through four more:
@@ -61,31 +75,36 @@ def _u64_tensor(values, device) -> torch.Tensor:
 
 def _gate_quotient_chunk(gate_id: str, num_wires: int, n_const: int, C: int):
     """Function accumulating the alpha-combined, selector-filtered
-    constraints of one gate type onto the running quotient numerator:
+    constraints of one gate type onto the running quotient numerators of K
+    proofs:
 
-        acc'[c] = acc[c] + sum_k alphas[c]^k * sel * constraint_k
-        apows'[c] = apows[c] * alphas[c]^num_constraints
+        acc'[k, c] = acc[k, c] + sum_i alphas[k, c]^i * sel * constraint_i
+        apows'[k, c] = apows[k, c] * alphas[k, c]^num_constraints
+
+    ``wires_lde`` [K, W, lde_n], ``sel_col`` [lde_n], ``const_cols``
+    [n_const, lde_n] (the circuit's, shared), ``pi_hash`` [K, 4] and
+    ``alphas`` [K, C] (each proof's), ``acc`` [K, C, lde_n], ``apows`` [K, C].
     """
     gate = GATE_TYPES[gate_id]
 
     def run(wires_lde, sel_col, const_cols, pi_hash, alphas, acc, apows):
         alg = BatchAlgebra()
-        wires_cols = [wires_lde[i] for i in range(num_wires)]
+        wires_cols = [wires_lde[:, i] for i in range(num_wires)]
         ccols = [const_cols[i] for i in range(n_const)]
-        pi_cols = [pi_hash[i] for i in range(4)]
+        pi_cols = [pi_hash[:, i : i + 1] for i in range(4)]
         batched = getattr(gate, "eval_constraints_batched", None)
         if batched is not None:
             cs = batched(wires_cols, ccols, pi_cols)
         else:
             cs = gate.eval_constraints(alg, wires_cols, ccols, pi_cols)
-        out_acc = [acc[c] for c in range(C)]
-        out_apows = [apows[c] for c in range(C)]
+        out_acc = [acc[:, c] for c in range(C)]
+        out_apows = [apows[:, c : c + 1] for c in range(C)]
         for t in cs:
             filt = gl.mul(sel_col, t)
             for c in range(C):
                 out_acc[c] = gl.add(out_acc[c], gl.mul(out_apows[c], filt))
-                out_apows[c] = gl.mul(out_apows[c], alphas[c])
-        return torch.stack(out_acc), torch.stack(out_apows)
+                out_apows[c] = gl.mul(out_apows[c], alphas[:, c : c + 1])
+        return torch.stack(out_acc, dim=1), torch.cat(out_apows, dim=1)
 
     return run
 
@@ -101,71 +120,57 @@ class Proof:
     public_inputs: list
 
 
-def _open_columns(coeffs: torch.Tensor, zeta: torch.Tensor) -> torch.Tensor:
-    """Evaluate S column polynomials [S, n] at an extension point [2];
-    returns [S, 2].
+def _open_columns(coeffs: torch.Tensor, zetas: torch.Tensor) -> torch.Tensor:
+    """Evaluate K proofs' S column polynomials [K, S, n] at each proof's
+    extension point ``zetas`` [K, 2]; returns [K, S, 2].
 
     Log-depth even/odd folding instead of an n-step Horner scan:
     ``p(z) = E(z^2) + z * O(z^2)`` halves the coefficient count per fold.
     All arithmetic is exact mod p, so the result is bit-identical to
     Horner."""
-    S, n = coeffs.shape
+    K, S, n = coeffs.shape
     if n & (n - 1) != 0:
         raise ValueError(f"column length must be a power of two, got {n}")
-    cur = torch.stack([coeffs, torch.zeros_like(coeffs)], dim=-1)  # [S, n, 2]
-    z = zeta  # [2], then z^2, z^4, ... per fold
-    while cur.shape[1] > 1:
-        pairs = cur.reshape(S, cur.shape[1] // 2, 2, 2)
-        even = pairs[:, :, 0]
-        odd = pairs[:, :, 1]
+    cur = torch.stack([coeffs, torch.zeros_like(coeffs)], dim=-1)  # [K, S, n, 2]
+    z = zetas[:, None, None, :]  # [K, 1, 1, 2], then z^2, z^4, ... per fold
+    while cur.shape[2] > 1:
+        pairs = cur.reshape(K, S, cur.shape[2] // 2, 2, 2)
+        even = pairs[:, :, :, 0]
+        odd = pairs[:, :, :, 1]
         cur = gl.ext_add(even, gl.ext_mul(odd, z.expand(odd.shape)))
         z = gl.ext_mul(z, z)
-    return cur[:, 0]
+    return cur[:, :, 0]
 
 
 def _tree_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum of the rows of [m, L] mod p in a log-depth halving tree."""
-    m = t.shape[0]
+    """Sum over the rows of [..., m, L] mod p in a log-depth halving tree."""
+    m = t.shape[-2]
     mp = 1 << max(m - 1, 0).bit_length()
     if mp != m:
-        t = torch.cat([t, torch.zeros((mp - m, t.shape[1]), dtype=torch.int64, device=t.device)])
-    while t.shape[0] > 1:
-        half = t.shape[0] // 2
-        t = gl.add(t[:half], t[half:])
-    return t[0]
+        pad = torch.zeros(t.shape[:-2] + (mp - m, t.shape[-1]), dtype=torch.int64, device=t.device)
+        t = torch.cat([t, pad], dim=-2)
+    while t.shape[-2] > 1:
+        half = t.shape[-2] // 2
+        t = gl.add(t[..., :half, :], t[..., half:, :])
+    return t[..., 0, :]
 
 
 def _combine_columns(lde_matrix: torch.Tensor, pows_arr: torch.Tensor) -> torch.Tensor:
-    """sum_i alpha^i * p_i(X): base-field columns [m, lde_n] times extension
-    alpha powers [m, 2] -> [lde_n, 2].
+    """sum_i alpha^i * p_i(X) for K proofs: base-field columns [K, m, lde_n]
+    times each proof's extension alpha powers [K, m, 2] -> [K, lde_n, 2].
 
     Rows are taken ``COMBINE_ROW_BLOCK`` at a time so the temporaries of the
     weighted terms stay small; modular addition is associative and exact, so
     the sum does not depend on the grouping."""
-    lde_n = lde_matrix.shape[1]
-    acc0 = torch.zeros(lde_n, dtype=torch.int64, device=lde_matrix.device)
+    K, m, lde_n = lde_matrix.shape
+    acc0 = torch.zeros((K, lde_n), dtype=torch.int64, device=lde_matrix.device)
     acc1 = torch.zeros_like(acc0)
-    for lo in range(0, lde_matrix.shape[0], COMBINE_ROW_BLOCK):
-        block = lde_matrix[lo : lo + COMBINE_ROW_BLOCK]
-        pw = pows_arr[lo : lo + COMBINE_ROW_BLOCK]
-        acc0 = gl.add(acc0, _tree_sum(gl.mul(block, pw[:, 0:1])))
-        acc1 = gl.add(acc1, _tree_sum(gl.mul(block, pw[:, 1:2])))
-    return torch.stack([acc0, acc1], dim=-1)  # [lde_n, 2]
-
-
-def _commit(matrix, rate_bits: int, cap_height: int, from_coeffs: bool = False,
-            fused_sponge: bool = False):
-    """columns [S, n] (evaluations on the subgroup, or coefficients if
-    ``from_coeffs``) on the device -> (coeffs, lde, tree).
-
-    The LDE and the tree levels stay device-resident (``tree`` is a
-    ``DeviceMerkleTree``); only the cap is fetched.  The leaves are the
-    columns of the LDE: the tree builder gets the transposed *view*, and the
-    hashing routes read it through its strides (no materialized transpose)."""
-    coeffs = matrix if from_coeffs else nt.intt(matrix)
-    lde = nt.coset_lde(coeffs, rate_bits)
-    tree = mk.device_merkle_tree(lde.t(), cap_height, fused_sponge=fused_sponge)
-    return coeffs, lde, tree
+    for lo in range(0, m, COMBINE_ROW_BLOCK):
+        block = lde_matrix[:, lo : lo + COMBINE_ROW_BLOCK]
+        pw = pows_arr[:, lo : lo + COMBINE_ROW_BLOCK]
+        acc0 = gl.add(acc0, _tree_sum(gl.mul(block, pw[:, :, 0:1])))
+        acc1 = gl.add(acc1, _tree_sum(gl.mul(block, pw[:, :, 1:2])))
+    return torch.stack([acc0, acc1], dim=-1)  # [K, lde_n, 2]
 
 
 def _cap_tuples(tree) -> list:
@@ -273,30 +278,27 @@ def get_circuit_kernels(pd, device):
     sigma_c = gl.from_u64(pd.sigma, device)
 
     def perm_columns(wires, betas, gammas):
-        """wires [R, n]; betas/gammas [C] -> (z_cols [C, n], pp [C, nch-1, n],
-        wrap [C] which must be all-ones)."""
-        z, pp, wrap = pcol.perm_columns_cuda(
-            wires[None], betas[None], gammas[None], id_vals_c, sigma_c
-        )
-        return z[0], pp[0], wrap[0]
+        """wires [K, >= R, n] (the first R rows are read); betas/gammas [K, C]
+        -> (z_cols [K, C, n], pp [K, C, nch-1, n], wrap [K, C] which must be
+        all-ones)."""
+        return pcol.perm_columns_cuda(wires, betas, gammas, id_vals_c, sigma_c)
 
     # The alpha-power ordering [L_0 term, permutation chunks, every gate's
     # constraints in gate order] is identical to the verifier's.
 
     def quotient_perm(wires_lde, zs_lde, pps_lde, betas, gammas, alphas):
-        """-> (acc [C, lde_n], apows [C]): the L_0 + permutation-chunk terms
-        alpha-combined, and the alpha power reached per challenge."""
-        acc, apows = pq.perm_quotient_cuda(
-            wires_lde[None], zs_lde[None], pps_lde[None], betas[None], gammas[None],
-            alphas[None], sigma_lde_c, xs_c, l0_c, k_is_c, blowup,
+        """-> (acc [K, C, lde_n], apows [K, C]): the L_0 + permutation-chunk
+        terms alpha-combined, and the alpha power reached per challenge."""
+        return pq.perm_quotient_cuda(
+            wires_lde, zs_lde, pps_lde, betas, gammas, alphas, sigma_lde_c, xs_c, l0_c, k_is_c,
+            blowup,
         )
-        return acc[0], apows[0]
 
     def quotient_finish(acc):
-        """acc [C, lde_n] -> quotient coefficient chunks [C*blowup, n]: the
-        divide by Z_H, then iNTT and coset unshift."""
+        """acc [K, C, lde_n] -> quotient coefficient chunks [K, C*blowup, n]:
+        the divide by Z_H, then iNTT and coset unshift."""
         q_evals = zm.zinv_mul_cuda(acc, z_h_c)
-        return gl.mul(nt.intt(q_evals), shift_pows_c).reshape(C * blowup, n)
+        return gl.mul(nt.intt(q_evals), shift_pows_c).reshape(acc.shape[0], C * blowup, n)
 
     sel_cols = [sel_lde[i] for i in range(n_sel)]
     # the Poseidon gate goes through its kernel, every other gate through the
@@ -309,14 +311,13 @@ def get_circuit_kernels(pd, device):
     ]
 
     def quotient_gates(wires_lde, pi_hash, alphas, acc, apows):
-        """acc [C, lde_n] plus every gate's selector-filtered constraints,
-        alpha-combined from the powers ``apows`` on, gate by gate in the
-        verifier's order."""
+        """acc [K, C, lde_n] plus every gate's selector-filtered constraints,
+        alpha-combined from the powers ``apows`` [K, C] on, gate by gate in
+        the verifier's order."""
         for gi, fn in gate_chunks:
             if fn is None:
                 acc, apows = gqc.poseidon_gate_quotient_cuda(
-                    wires_lde[None], sel_cols[gi], alphas[None], acc[None], apows[None])
-                acc, apows = acc[0], apows[0]
+                    wires_lde, sel_cols[gi], alphas, acc, apows)
             else:
                 acc, apows = fn(
                     wires_lde, sel_cols[gi], const_lde, pi_hash, alphas, acc, apows
@@ -325,9 +326,10 @@ def get_circuit_kernels(pd, device):
 
     kernels = {
         "perm_columns": perm_columns,
-        # the quotient in its three parts: wires_lde [W, lde_n], zs_lde
-        # [C, lde_n], pps_lde [C, nch-1, lde_n], challenges [C], pi_hash [4]
-        # -> quotient coefficient chunks [C*blowup, n]
+        # the quotient in its three parts, over K proofs: wires_lde [K, W,
+        # lde_n], zs_lde [K, C, lde_n], pps_lde [K, C, nch-1, lde_n],
+        # challenges [K, C], pi_hash [K, 4] -> quotient coefficient chunks
+        # [K, C*blowup, n]
         "quotient_perm": quotient_perm,
         "quotient_gates": quotient_gates,
         "quotient_finish": quotient_finish,
@@ -431,7 +433,7 @@ def check_witness(circuit_data: CircuitData, pw: PartialWitness, device=None) ->
     return public_inputs
 
 
-class _PhaseTimer:
+class PhaseTimer:
     """Seconds per prover phase, and per part of a phase, into a caller's
     dict.  With a dict given, every boundary synchronizes the device so queued
     work is charged to the interval that enqueued it; without one the timer
@@ -466,6 +468,243 @@ class _PhaseTimer:
             self._stamp(self._names[0], name)
 
 
+def _commit_batch(matrices, rate_bits: int, cap_height: int, from_coeffs: bool = False,
+                  fused_sponge: bool = False):
+    """Columns [K, S, n] on the device (evaluations on the subgroup, or
+    coefficients if ``from_coeffs``) -> (coeffs [K, S, n], lde [K, S, lde_n],
+    K trees).
+
+    The NTTs fold the proof axis into the rows (one call each); the K trees
+    are built in one pass, their levels stay on the device (each tree a
+    ``DeviceMerkleTree`` of views) and only the caps are fetched.  The
+    leaves are the columns of each proof's LDE: the builder gets the
+    transposed view."""
+    coeffs = matrices if from_coeffs else nt.intt(matrices)
+    lde = nt.coset_lde(coeffs, rate_bits)
+    trees = mk.device_merkle_trees_batch(lde.transpose(1, 2), cap_height, fused_sponge=fused_sponge)
+    return coeffs, lde, trees
+
+
+def _openings_dict(opens_zeta, opens_gzeta_z, n_cs: int, n_w: int, n_zpp: int) -> dict:
+    """One proof's openings at zeta [m, 2] and g*zeta [C, 2] as the proof's
+    named lists of (c0, c1) tuples."""
+    rows = lambda a: [tuple(int(x) for x in o) for o in a]  # noqa: E731
+    return {
+        "constants_sigmas": rows(opens_zeta[:n_cs]),
+        "wires": rows(opens_zeta[n_cs : n_cs + n_w]),
+        "zs_pp": rows(opens_zeta[n_cs + n_w : n_cs + n_w + n_zpp]),
+        "quotient": rows(opens_zeta[n_cs + n_w + n_zpp :]),
+        "zs_next": rows(opens_gzeta_z),
+    }
+
+
+def prove_batch(
+    circuit_data: CircuitData,
+    pws: list,
+    device=None,
+    fused_sponge: bool = False,
+    timings: dict | None = None,
+) -> list:
+    """Prove K witnesses ``pws`` of one circuit on the circuit's device (or
+    ``device``); returns K proofs bit-identical to K ``prove`` calls.
+
+    ``fused_sponge`` and ``timings`` are those of ``prove``: the phases are
+    timed for the batch as a whole."""
+    pd = circuit_data.prover
+    common = pd.common
+    cfg = common.config
+    n = common.n
+    fri_cfg = cfg.fri
+    lde_n = n * fri_cfg.blowup
+    R = cfg.num_routed_wires
+    C = cfg.num_challenges
+    nch = n_chunks(R)
+    K = len(pws)
+    if K < 1:
+        raise ValueError("prove_batch wants at least one witness")
+    device = gl.resolve_device(device if device is not None else circuit_data.device)
+    timer = PhaseTimer(timings, device)
+    timer.phase("tables")  # per-circuit tables, digest-cached across proofs
+    kernels = get_circuit_kernels(pd, device)
+    timer.phase("witness")
+
+    # ---- 1. witness fill (host, per proof) ----
+    wires_all = np.empty((K, cfg.num_wires, n), dtype=np.uint64)
+    public_inputs_all, pi_hashes = [], []
+    for k, pw in enumerate(pws):
+        wires_all[k], public_inputs = compute_wire_matrix(pd, pw)
+        public_inputs_all.append(public_inputs)
+        pi_hashes.append(ps.hash_no_pad_s(public_inputs))
+    timer.phase("commit_wires")
+
+    # ---- 2. commit wires ----
+    wires_dev = gl.from_u64(wires_all, device)
+    wire_coeffs_dev, wire_lde_dev, wires_trees = _commit_batch(
+        wires_dev, fri_cfg.rate_bits, fri_cfg.cap_height, fused_sponge=fused_sponge
+    )
+    challengers = [Challenger() for _ in range(K)]
+    betas, gammas = [], []
+    for k, ch in enumerate(challengers):
+        ch.observe_hash(common.circuit_digest)
+        ch.observe_hash(pi_hashes[k])
+        ch.observe_cap(_cap_tuples(wires_trees[k]))
+        betas.append(ch.get_n_challenges(C))
+        gammas.append(ch.get_n_challenges(C))
+
+    timer.phase("perm_columns")
+    # ---- 3. permutation argument columns ----
+    betas_arr = _u64_tensor(betas, device)  # [K, C]
+    gammas_arr = _u64_tensor(gammas, device)
+    z_cols_d, pp_cols_d, wraps = kernels["perm_columns"](wires_dev, betas_arr, gammas_arr)
+    zs_pp_dev = torch.cat([z_cols_d, pp_cols_d.reshape(K, C * (nch - 1), n)], dim=1)
+    zspp_coeffs_dev, zspp_lde_dev, zs_pp_trees = _commit_batch(
+        zs_pp_dev, fri_cfg.rate_bits, fri_cfg.cap_height, fused_sponge=fused_sponge
+    )
+    assert (gl.to_u64(wraps) == 1).all(), (
+        "permutation argument product != 1 (sigma inconsistent)"
+    )
+    alphas = []
+    for k, ch in enumerate(challengers):
+        ch.observe_cap(_cap_tuples(zs_pp_trees[k]))
+        alphas.append(ch.get_n_challenges(C))
+
+    timer.phase("quotient", "quotient_perm")
+    # ---- 4. quotient ----
+    # the kernels read the Z and partial-product rows as dense [K, C, ...]
+    # blocks: slices of the [K, S, lde_n] LDE are copied once K > 1
+    zs_lde_arr = zspp_lde_dev[:, :C].contiguous()
+    pps_lde_arr = zspp_lde_dev[:, C:].reshape(K, C, nch - 1, lde_n).contiguous()
+    alphas_arr = _u64_tensor(alphas, device)
+    acc, apows = kernels["quotient_perm"](
+        wire_lde_dev, zs_lde_arr, pps_lde_arr, betas_arr, gammas_arr, alphas_arr
+    )
+    del zs_lde_arr, pps_lde_arr
+    timer.sub("quotient_gates")
+    acc = kernels["quotient_gates"](
+        wire_lde_dev, _u64_tensor(pi_hashes, device), alphas_arr, acc, apows
+    )
+    timer.sub("quotient_finish")
+    quotient_dev = kernels["quotient_finish"](acc)
+    timer.sub("quotient_commit")
+    quot_coeffs_dev, quot_lde_dev, quotient_trees = _commit_batch(
+        quotient_dev, fri_cfg.rate_bits, fri_cfg.cap_height, from_coeffs=True,
+        fused_sponge=fused_sponge,
+    )
+    zetas = []
+    for k, ch in enumerate(challengers):
+        ch.observe_cap(_cap_tuples(quotient_trees[k]))
+        zetas.append(ch.get_extension_challenge())
+
+    timer.phase("openings")
+    # ---- 5. openings at zeta (and g*zeta for Z columns) ----
+    g_n = gl.primitive_root_of_unity(n.bit_length() - 1)
+    gzetas = [(z[0] * g_n % P, z[1] * g_n % P) for z in zetas]
+    zetas_arr = _u64_tensor(zetas, device)  # [K, 2]
+    gzetas_arr = _u64_tensor(gzetas, device)
+    cs_coeffs = kernels["cs_coeffs_dev"]
+    all_coeffs_dev = torch.cat(
+        [cs_coeffs.expand((K,) + cs_coeffs.shape), wire_coeffs_dev, zspp_coeffs_dev,
+         quot_coeffs_dev], dim=1,
+    )
+    opens_zeta, opens_gzeta_z = mk.fetch_arrays(
+        _open_columns(all_coeffs_dev, zetas_arr),
+        _open_columns(zspp_coeffs_dev[:, :C], gzetas_arr),
+    )
+    del all_coeffs_dev
+    sizes = (pd.cs_coeffs.shape[0], cfg.num_wires, zspp_coeffs_dev.shape[1])
+    openings_all = []
+    for k, ch in enumerate(challengers):
+        openings = _openings_dict(opens_zeta[k], opens_gzeta_z[k], *sizes)
+        for name in ["constants_sigmas", "wires", "zs_pp", "quotient", "zs_next"]:
+            for o in openings[name]:
+                ch.observe_ext(o)
+        openings_all.append(openings)
+
+    timer.phase("fri", "fri_combine")
+    # ---- 6. FRI ----
+    alpha_fris = [ch.get_extension_challenge() for ch in challengers]
+    # combine batch-1 columns (everything opened at zeta); LDEs are already
+    # device-resident from the commitments, constants ride on the circuit's
+    # tables
+    cs_lde = kernels["cs_lde_dev"]
+    batch1_lde_dev = torch.cat(
+        [cs_lde.expand((K,) + cs_lde.shape), wire_lde_dev, zspp_lde_dev, quot_lde_dev], dim=1
+    )
+    m1 = batch1_lde_dev.shape[1]
+    alpha_pows = []  # per proof: alpha^0 .. alpha^(m1 + C - 1)
+    for alpha_fri in alpha_fris:
+        pows, apow = [], (1, 0)
+        for _ in range(m1 + C):
+            pows.append(apow)
+            apow = ext_mul(apow, alpha_fri)
+        alpha_pows.append(pows)
+    pows_arr = _u64_tensor(alpha_pows, device)  # [K, m1 + C, 2]
+
+    comb1 = _combine_columns(batch1_lde_dev, pows_arr[:, :m1])
+    del batch1_lde_dev
+    comb2 = _combine_columns(zspp_lde_dev[:, :C], pows_arr[:, m1:])
+    comb1_at_zeta, comb2_at_gzeta = [], []
+    for k, openings in enumerate(openings_all):
+        flat_opens = (
+            openings["constants_sigmas"] + openings["wires"] + openings["zs_pp"]
+            + openings["quotient"]
+        )
+        acc1 = (0, 0)
+        for i, y in enumerate(flat_opens):
+            acc1 = ext_add(acc1, ext_mul(alpha_pows[k][i], y))
+        acc2 = (0, 0)
+        for j, y in enumerate(openings["zs_next"]):
+            acc2 = ext_add(acc2, ext_mul(alpha_pows[k][m1 + j], y))
+        comb1_at_zeta.append(acc1)
+        comb2_at_gzeta.append(acc2)
+
+    timer.sub("fri_initial")
+    # FRI initial quotient G(x) on the cached coset table
+    G = fi.fri_initial_cuda(
+        comb1, comb2, kernels["xs"], zetas_arr, gzetas_arr,
+        _u64_tensor(comb1_at_zeta, device), _u64_tensor(comb2_at_gzeta, device),
+    )
+
+    timer.sub("fri_fold")
+    fri_trees, final_polys = fold_layers(
+        G, gl.MULTIPLICATIVE_GROUP_GENERATOR, fri_cfg, challengers, fused_sponge=fused_sponge
+    )
+    timer.sub("fri_grind")
+    pow_witnesses = [
+        grind_pow(ch, fri_cfg.proof_of_work_bits, device, fused_sponge=fused_sponge)
+        for ch in challengers
+    ]
+    timer.sub("fri_queries")
+    proofs = []
+    for k, ch in enumerate(challengers):
+        indices, rounds = query_rounds(fri_trees[k], fri_cfg, ch, lde_n)
+        # initial-tree openings per query: each proof's device trees gather
+        # only the touched leaf rows of its LDE and path digests (one small
+        # fetch); the constants_sigmas tree of the built circuit is host numpy
+        named_trees = {
+            "constants_sigmas": (None, pd.cs_lde, pd.cs_tree),
+            "wires": (wire_lde_dev[k], None, wires_trees[k]),
+            "zs_pp": (zspp_lde_dev[k], None, zs_pp_trees[k]),
+            "quotient": (quot_lde_dev[k], None, quotient_trees[k]),
+        }
+        proofs.append(Proof(
+            wires_cap=_cap_tuples(wires_trees[k]),
+            zs_pp_cap=_cap_tuples(zs_pp_trees[k]),
+            quotient_cap=_cap_tuples(quotient_trees[k]),
+            openings=openings_all[k],
+            fri=FriProof(
+                caps=[_cap_tuples(t) for t in fri_trees[k]],
+                final_poly=final_polys[k],
+                pow_witness=pow_witnesses[k],
+                query_rounds=rounds,
+            ),
+            initial_openings=_extract_initial_openings(named_trees, indices),
+            public_inputs=[int(v) for v in public_inputs_all[k]],
+        ))
+    timer.phase("_end")
+    return proofs
+
+
 def prove(
     circuit_data: CircuitData,
     pw: PartialWitness,
@@ -474,7 +713,7 @@ def prove(
     timings: dict | None = None,
 ) -> Proof:
     """Prove ``circuit_data`` under witness ``pw`` on the circuit's device
-    (or ``device``).
+    (or ``device``): ``prove_batch`` at K = 1.
 
     ``fused_sponge`` hashes every commitment through the one-launch sponge
     kernel instead of the chained permutation kernel; both give the same
@@ -484,177 +723,4 @@ def prove(
     ``quotient_gates``, ``quotient_finish``, ``quotient_commit``;
     ``fri_combine``, ``fri_initial``, ``fri_fold``, ``fri_grind``,
     ``fri_queries``), which add up to their phase."""
-    pd = circuit_data.prover
-    common = pd.common
-    cfg = common.config
-    n = common.n
-    fri_cfg = cfg.fri
-    lde_n = n * fri_cfg.blowup
-    R = cfg.num_routed_wires
-    C = cfg.num_challenges
-    device = gl.resolve_device(device if device is not None else circuit_data.device)
-    timer = _PhaseTimer(timings, device)
-    timer.phase("tables")  # per-circuit tables, digest-cached across proofs
-    kernels = get_circuit_kernels(pd, device)
-    timer.phase("witness")
-
-    # ---- 1. witness fill ----
-    wires, public_inputs = compute_wire_matrix(pd, pw)
-    pi_hash = ps.hash_no_pad_s(public_inputs)
-    timer.phase("commit_wires")
-
-    # ---- 2. commit wires ----
-    wires_dev = gl.from_u64(wires, device)
-    wire_coeffs_dev, wire_lde_dev, wires_tree = _commit(
-        wires_dev, fri_cfg.rate_bits, fri_cfg.cap_height, fused_sponge=fused_sponge
-    )
-
-    challenger = Challenger()
-    challenger.observe_hash(common.circuit_digest)
-    challenger.observe_hash(pi_hash)
-    challenger.observe_cap(_cap_tuples(wires_tree))
-    betas = challenger.get_n_challenges(C)
-    gammas = challenger.get_n_challenges(C)
-
-    timer.phase("perm_columns")
-    # ---- 3. permutation argument columns ----
-    nch = n_chunks(R)
-    betas_arr = _u64_tensor(betas, device)
-    gammas_arr = _u64_tensor(gammas, device)
-    z_cols_d, pp_cols_d, wraps = kernels["perm_columns"](wires_dev[:R], betas_arr, gammas_arr)
-    zs_pp_matrix_dev = torch.cat([z_cols_d, pp_cols_d.reshape(C * (nch - 1), n)], dim=0)
-    zspp_coeffs_dev, zspp_lde_dev, zs_pp_tree = _commit(
-        zs_pp_matrix_dev, fri_cfg.rate_bits, fri_cfg.cap_height, fused_sponge=fused_sponge
-    )
-    assert (gl.to_u64(wraps) == 1).all(), (
-        "permutation argument product != 1 (sigma inconsistent)"
-    )
-    challenger.observe_cap(_cap_tuples(zs_pp_tree))
-    alphas = challenger.get_n_challenges(C)
-
-    timer.phase("quotient", "quotient_perm")
-    # ---- 4. quotient ----
-    zs_lde_arr = zspp_lde_dev[:C]
-    pps_lde_arr = zspp_lde_dev[C:].reshape(C, nch - 1, lde_n)
-    alphas_arr = _u64_tensor(alphas, device)
-    acc, apows = kernels["quotient_perm"](
-        wire_lde_dev, zs_lde_arr, pps_lde_arr, betas_arr, gammas_arr, alphas_arr
-    )
-    timer.sub("quotient_gates")
-    acc = kernels["quotient_gates"](
-        wire_lde_dev, _u64_tensor(pi_hash, device), alphas_arr, acc, apows
-    )
-    timer.sub("quotient_finish")
-    quotient_matrix_dev = kernels["quotient_finish"](acc)
-    timer.sub("quotient_commit")
-    quot_coeffs_dev, quot_lde_dev, quotient_tree = _commit(
-        quotient_matrix_dev, fri_cfg.rate_bits, fri_cfg.cap_height, from_coeffs=True, fused_sponge=fused_sponge
-    )
-    challenger.observe_cap(_cap_tuples(quotient_tree))
-    zeta = challenger.get_extension_challenge()
-
-    timer.phase("openings")
-    # ---- 5. openings at zeta (and g*zeta for Z columns) ----
-    g_n = gl.primitive_root_of_unity(n.bit_length() - 1)
-    zeta_arr = _u64_tensor(zeta, device)
-    gzeta = (zeta[0] * g_n % P, zeta[1] * g_n % P)
-    gzeta_arr = _u64_tensor(gzeta, device)
-
-    all_coeffs_dev = torch.cat(
-        [kernels["cs_coeffs_dev"], wire_coeffs_dev, zspp_coeffs_dev, quot_coeffs_dev], dim=0
-    )
-    opens_zeta, opens_gzeta_z = mk.fetch_arrays(
-        _open_columns(all_coeffs_dev, zeta_arr),
-        _open_columns(zspp_coeffs_dev[:C], gzeta_arr),
-    )
-    del all_coeffs_dev
-
-    n_cs = pd.cs_coeffs.shape[0]
-    n_w = cfg.num_wires
-    n_zpp = zspp_coeffs_dev.shape[0]
-    openings = {
-        "constants_sigmas": [tuple(int(x) for x in o) for o in opens_zeta[:n_cs]],
-        "wires": [tuple(int(x) for x in o) for o in opens_zeta[n_cs : n_cs + n_w]],
-        "zs_pp": [tuple(int(x) for x in o) for o in opens_zeta[n_cs + n_w : n_cs + n_w + n_zpp]],
-        "quotient": [tuple(int(x) for x in o) for o in opens_zeta[n_cs + n_w + n_zpp :]],
-        "zs_next": [tuple(int(x) for x in o) for o in opens_gzeta_z],
-    }
-    for name in ["constants_sigmas", "wires", "zs_pp", "quotient", "zs_next"]:
-        for o in openings[name]:
-            challenger.observe_ext(o)
-
-    timer.phase("fri", "fri_combine")
-    # ---- 6. FRI ----
-    alpha_fri = challenger.get_extension_challenge()
-
-    # combine batch-1 columns (everything opened at zeta); LDEs are already
-    # device-resident from _commit, constants ride on the per-circuit cache
-    batch1_lde_dev = torch.cat(
-        [kernels["cs_lde_dev"], wire_lde_dev, zspp_lde_dev, quot_lde_dev], dim=0
-    )
-    m1 = batch1_lde_dev.shape[0]
-    alpha_pows = []
-    apow = (1, 0)
-    for _ in range(m1 + C):
-        alpha_pows.append(apow)
-        apow = ext_mul(apow, alpha_fri)
-
-    comb1 = _combine_columns(batch1_lde_dev, _u64_tensor(alpha_pows[:m1], device))
-    del batch1_lde_dev
-    comb1_at_zeta = (0, 0)
-    flat_opens = (
-        openings["constants_sigmas"] + openings["wires"] + openings["zs_pp"] + openings["quotient"]
-    )
-    for i, y in enumerate(flat_opens):
-        comb1_at_zeta = ext_add(comb1_at_zeta, ext_mul(alpha_pows[i], y))
-
-    comb2 = _combine_columns(zspp_lde_dev[:C], _u64_tensor(alpha_pows[m1 : m1 + C], device))
-    comb2_at_gzeta = (0, 0)
-    for j, y in enumerate(openings["zs_next"]):
-        comb2_at_gzeta = ext_add(comb2_at_gzeta, ext_mul(alpha_pows[m1 + j], y))
-
-    timer.sub("fri_initial")
-    # FRI initial quotient G(x) on the cached coset table
-    scalars = _u64_tensor([zeta, gzeta, comb1_at_zeta, comb2_at_gzeta], device)  # [4, 2]
-    G = fi.fri_initial_cuda(
-        comb1[None], comb2[None], kernels["xs"],
-        scalars[0:1], scalars[1:2], scalars[2:3], scalars[3:4],
-    )[0]
-
-    timer.sub("fri_fold")
-    trees, final_poly, fri_betas = fold_layers(
-        G, gl.MULTIPLICATIVE_GROUP_GENERATOR, fri_cfg, challenger, fused_sponge=fused_sponge
-    )
-    timer.sub("fri_grind")
-    pow_witness = grind_pow(challenger, fri_cfg.proof_of_work_bits, device, fused_sponge=fused_sponge)
-    timer.sub("fri_queries")
-    indices, rounds = query_rounds(trees, fri_cfg, challenger, lde_n)
-
-    # initial-tree openings per query: device trees gather only the touched
-    # leaf rows + path digests (one combined small fetch); the
-    # constants_sigmas tree of the built circuit is host numpy
-    named_trees = {
-        "constants_sigmas": (None, pd.cs_lde, pd.cs_tree),
-        "wires": (wire_lde_dev, None, wires_tree),
-        "zs_pp": (zspp_lde_dev, None, zs_pp_tree),
-        "quotient": (quot_lde_dev, None, quotient_tree),
-    }
-    initial_openings = _extract_initial_openings(named_trees, indices)
-
-    fri_proof = FriProof(
-        caps=[_cap_tuples(t) for t in trees],
-        final_poly=final_poly,
-        pow_witness=pow_witness,
-        query_rounds=rounds,
-    )
-
-    timer.phase("_end")
-    return Proof(
-        wires_cap=_cap_tuples(wires_tree),
-        zs_pp_cap=_cap_tuples(zs_pp_tree),
-        quotient_cap=_cap_tuples(quotient_tree),
-        openings=openings,
-        fri=fri_proof,
-        initial_openings=initial_openings,
-        public_inputs=[int(v) for v in public_inputs],
-    )
+    return prove_batch(circuit_data, [pw], device, fused_sponge, timings)[0]

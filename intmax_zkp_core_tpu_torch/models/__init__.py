@@ -1,2 +1,4 @@
 """Application layer: the zkDSA signature circuit, a Poseidon hash chain, the dense
-Merkle tree and the sparse Merkle tree with their in-circuit gadgets."""
+Merkle tree and the sparse Merkle tree with their in-circuit gadgets, the
+user-transaction layer (``transaction/``) and the block flow's first stages
+(``rollup/block_flow.py``)."""

@@ -6,8 +6,10 @@ LDE row (leaf = all column values at one domain point) and reducing to a
 
 All hashing is the batched Poseidon sponge of ``ops/poseidon.py``: one
 ``hash_no_pad`` over [n, leaf_width] for leaves, then log2(n) - cap_height
-rounds of batched two-to-one hashing.  On the card each absorb step is one
-launch of the permutation kernel; ``fused_sponge=True`` routes leaves and
+rounds of batched two-to-one hashing.  The builders take K same-shape trees
+at once ([K, n, leaf_width] leaves, ``*_batch``), every level of all K trees
+in one call; the single-tree builders are those at K = 1.  On the card each
+absorb step is one launch of the permutation kernel; ``fused_sponge=True`` routes leaves and
 levels through the one-launch sponge kernel instead (see ``ops/poseidon.py``).
 """
 
@@ -103,52 +105,85 @@ class DeviceMerkleTree:
 
 
 def hash_leaves(leaf_data: torch.Tensor, fused_sponge: bool = False) -> torch.Tensor:
-    """[n, leaf_width] -> [n, 4] digests.
+    """[..., n, leaf_width] -> [..., n, 4] digests.
 
     Matches plonky2's hash_or_noop: a leaf of width <= 4 is used directly
     (zero-padded), wider leaves are hash_no_pad'ed.  ``leaf_data`` may be a
-    strided view (a transposed LDE): neither route materializes it.
+    strided view (a transposed LDE): the chained route reads it through its
+    strides; the fused route does too where the leading axes fold into the
+    rows without a copy (one tree), and copies the leaves of several trees
+    into one [K * n, leaf_width] matrix first.
     """
-    n, width = leaf_data.shape
+    width = leaf_data.shape[-1]
     if width <= 4:
-        out = torch.zeros((n, 4), dtype=torch.int64, device=leaf_data.device)
-        out[:, :width] = leaf_data
+        out = torch.zeros(leaf_data.shape[:-1] + (4,), dtype=torch.int64, device=leaf_data.device)
+        out[..., :width] = leaf_data
         return out
     return ps.hash_no_pad(leaf_data, fused_sponge=fused_sponge)
 
 
-def _level_two_to_one(cur: torch.Tensor, fused_sponge: bool = False) -> torch.Tensor:
-    """One tree level: [m, 4] digests -> [m/2, 4].  Siblings are adjacent
-    rows, so the pair table is a free reshape [m, 4] -> [m/2, 8]."""
-    m = cur.shape[0]
-    return ps.hash_no_pad(cur.reshape(m // 2, 8), fused_sponge=fused_sponge)
+def _level_two_to_one_batch(cur: torch.Tensor, fused_sponge: bool = False) -> torch.Tensor:
+    """One level of K trees: [K, m, 4] digests -> [K, m/2, 4].  Siblings are
+    adjacent rows, so the pair table is a free reshape [K, m, 4] -> [K, m/2,
+    8], and the K trees' pairs go through one sponge call."""
+    K, m, _ = cur.shape
+    return ps.hash_no_pad(cur.reshape(K, m // 2, 8), fused_sponge=fused_sponge)
 
 
-def build_merkle_levels(leaf_data, cap_height: int, device=None, fused_sponge: bool = False) -> list:
-    """Device-resident tree levels (levels[0] = leaf digests, levels[-1] =
-    cap) of [n, leaf_width] leaf rows."""
+def build_merkle_levels_batch(leaf_data, cap_height: int, device=None,
+                              fused_sponge: bool = False) -> list:
+    """Device-resident levels of K same-shape trees: leaf rows [K, m, w] ->
+    list of [K, m_i, 4] (levels[0] = leaf digests, levels[-1] = the K caps).
+    Each level hashes all K trees' nodes in one call: the batch axis folds
+    into the row axis, so K trees cost one tree's launches."""
     leaf_data = gl.as_field(leaf_data, device)
-    n = leaf_data.shape[0]
-    assert n & (n - 1) == 0, "leaf count must be a power of two"
-    assert n >= 1 << cap_height
+    K, m, _ = leaf_data.shape
+    assert m & (m - 1) == 0, "leaf count must be a power of two"
+    assert m >= 1 << cap_height
     levels_dev = [hash_leaves(leaf_data, fused_sponge)]
-    while levels_dev[-1].shape[0] > 1 << cap_height:
-        levels_dev.append(_level_two_to_one(levels_dev[-1], fused_sponge))
+    while levels_dev[-1].shape[1] > 1 << cap_height:
+        levels_dev.append(_level_two_to_one_batch(levels_dev[-1], fused_sponge))
     return levels_dev
+
+
+def trees_from_batch_levels(levels_np: list, cap_height: int) -> list:
+    """Host [K, m_i, 4] level arrays -> K ``MerkleTree``s (views of them)."""
+    K = levels_np[0].shape[0]
+    return [MerkleTree(levels=[lv[k] for lv in levels_np], cap_height=cap_height)
+            for k in range(K)]
+
+
+def build_merkle_trees_batch(leaf_data, cap_height: int, device=None,
+                             fused_sponge: bool = False) -> list:
+    """K independent same-shape trees of leaf rows [K, m, w] in one pass; all
+    levels come back to host in one transfer.  Returns K ``MerkleTree``s."""
+    levels_dev = build_merkle_levels_batch(leaf_data, cap_height, device, fused_sponge)
+    return trees_from_batch_levels(fetch_arrays(*levels_dev), cap_height)
+
+
+def device_merkle_trees_batch(leaf_data, cap_height: int, device=None,
+                              fused_sponge: bool = False) -> list:
+    """Like ``build_merkle_trees_batch`` but the levels stay on the device
+    and only the K caps are fetched (one transfer).  Returns K
+    ``DeviceMerkleTree``s whose levels are views of the batched levels."""
+    levels_dev = build_merkle_levels_batch(leaf_data, cap_height, device, fused_sponge)
+    caps_np = fetch_arrays(levels_dev[-1])[0]
+    return [DeviceMerkleTree(levels_dev=[lv[k] for lv in levels_dev], cap_height=cap_height,
+                             cap_np=caps_np[k])
+            for k in range(caps_np.shape[0])]
 
 
 def device_merkle_tree(leaf_data, cap_height: int, device=None, fused_sponge: bool = False) -> DeviceMerkleTree:
     """Like ``build_merkle_tree`` but fetches ONLY the cap."""
-    levels_dev = build_merkle_levels(leaf_data, cap_height, device, fused_sponge)
-    cap_np = fetch_arrays(levels_dev[-1])[0]
-    return DeviceMerkleTree(levels_dev=levels_dev, cap_height=cap_height, cap_np=cap_np)
+    leaf_data = gl.as_field(leaf_data, device)
+    return device_merkle_trees_batch(leaf_data[None], cap_height, fused_sponge=fused_sponge)[0]
 
 
 def build_merkle_tree(leaf_data, cap_height: int, device=None, fused_sponge: bool = False) -> MerkleTree:
     """leaf_data: [n, leaf_width] (n a power of two >= 2^cap_height).  All
     levels come back to host in one transfer (``fetch_arrays``)."""
-    levels_dev = build_merkle_levels(leaf_data, cap_height, device, fused_sponge)
-    return MerkleTree(levels=fetch_arrays(*levels_dev), cap_height=cap_height)
+    leaf_data = gl.as_field(leaf_data, device)
+    return build_merkle_trees_batch(leaf_data[None], cap_height, fused_sponge=fused_sponge)[0]
 
 
 def verify_merkle_proof(leaf_data, index: int, path: list, cap: np.ndarray) -> bool:

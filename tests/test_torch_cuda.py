@@ -321,3 +321,147 @@ def test_chain_native_fill_equals_python_fill(card):
     wires, pi = compute_wire_matrix(chain.data.prover, pw)
     wires_py, pi_py = compute_wire_matrix_plain(chain.data.prover, pw)
     assert (wires == wires_py).all() and pi == pi_py
+
+
+@pytest.fixture(scope="module")
+def user_tx_flow():
+    """The block flow's user-tx and signature batches on the card, at
+    test_constants and standard_recursion_config (built once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    from intmax_zkp_core_tpu_torch.models.rollup.block_flow import prove_user_txs_and_signatures
+
+    return prove_user_txs_and_signatures()
+
+
+@pytest.mark.cuda
+def test_prove_batch_equals_sequential_on_the_card(user_tx_flow):
+    """The K = 3 user-tx batch: each proof equals a sequential prove of its
+    witness on the card and the JAX package's (golden), and verifies; K3 - K7
+    are launched as often per batch as per proof."""
+    import hashlib
+    import json
+    import pathlib
+
+    from intmax_zkp_core_tpu_torch.engine.batch_prover import prove_batch
+    from intmax_zkp_core_tpu_torch.engine.serde import proof_to_json
+
+    lines = [ln for ln in (pathlib.Path(__file__).resolve().parent.parent
+                           / "intmax_zkp_core_tpu_torch" / "golden"
+                           / "user_tx_flow_standard.sha256").read_text().splitlines()
+             if not ln.startswith("#")]
+    data, pws = user_tx_flow.user_tx_circuit.data, user_tx_flow.user_tx_witnesses
+    assert data.common.n == 4096 and len(pws) == 3
+    assert tuple(data.common.circuit_digest) == tuple(int(x) for x in lines[0].split()[1:5])
+    before = pc.launch_counts()
+    batch = prove_batch(data, pws)
+    per_batch = {k: n - before[k] for k, n in pc.launch_counts().items()}
+    before = pc.launch_counts()
+    sequential = [data.prove(pw) for pw in pws]
+    per_proof = {k: (n - before[k]) // 3 for k, n in pc.launch_counts().items()}
+    for k, (bp, sp) in enumerate(zip(batch, sequential)):
+        assert bp == sp == user_tx_flow.user_tx_proofs[k]
+        sha = hashlib.sha256(json.dumps(proof_to_json(bp), sort_keys=True).encode()).hexdigest()
+        assert sha == lines[1 + k].split()[0]
+        data.verify(bp)
+    for name in ("perm_columns_cuda", "perm_quotient_cuda", "zinv_mul_cuda", "fri_initial_cuda",
+                 "poseidon_gate_quotient_cuda", "ntt_cuda"):
+        assert per_batch[name] == per_proof[name], name
+
+
+@pytest.mark.cuda
+def test_small_user_tx_batch_equals_the_jax_proofs_on_the_card(card):
+    """The purge-only transition of ``test_torch_transaction.py`` and the
+    default transaction at its small constants, proved as one K = 2 batch on
+    the card: equal to two ``prove`` calls and to the JAX package's proofs
+    (``golden/user_tx_small_test.sha256``, first and third lines)."""
+    import hashlib
+    import json
+    import pathlib
+
+    from intmax_zkp_core_tpu_torch.config import RollupConstants
+    from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig, FriConfig
+    from intmax_zkp_core_tpu_torch.engine.prover import prove_batch
+    from intmax_zkp_core_tpu_torch.engine.serde import proof_to_json
+    from intmax_zkp_core_tpu_torch.engine.witness import PartialWitness
+    from intmax_zkp_core_tpu_torch.models.sparse_merkle_tree import (
+        LayeredLayeredSparseMerkleTree,
+    )
+    from intmax_zkp_core_tpu_torch.models.transaction import circuits as tc
+    from intmax_zkp_core_tpu_torch.models.transaction.user_asset_tree import UserAssetTree
+    from intmax_zkp_core_tpu_torch.models.zkdsa.account import Address
+    from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut
+
+    small = RollupConstants(  # tests/test_user_transaction.py::small_constants
+        log_max_n_users=3, log_max_n_txs=3, log_max_n_contracts=3, log_max_n_variables=3,
+        log_n_txs=2, log_n_recipients=3, log_n_contracts=3, log_n_variables=3,
+        n_registrations=1, n_diffs=1, n_merges=1, n_deposits=1, n_scroll_flags=1,
+        n_polygon_flags=1, n_blocks=2)
+    c = tc.make_user_proof_circuit(
+        small, CircuitConfig(fri=FriConfig(num_query_rounds=4, proof_of_work_bits=2)), card)
+    merge_key, contract, variable = HashOut.from_u32(1), HashOut.from_u32(3), HashOut.from_u32(5)
+    user_tree, diff_tree = UserAssetTree(), LayeredLayeredSparseMerkleTree()
+    user_tree.set(merge_key, contract, variable, HashOut.from_u32(10))
+    old_root = user_tree.get_root()
+    purge_pw, _ = c.witness(tc.MergeAndPurgeTransition(
+        sender_address=Address(777), merge_witnesses=[],
+        purge_input_witnesses=[user_tree.set(merge_key, contract, variable, HashOut.ZERO)],
+        purge_output_witnesses=[diff_tree.set(HashOut.from_u32(2), contract, variable,
+                                              HashOut.from_u32(10))],
+        nonce=HashOut.from_u32(99), old_user_asset_root=old_root))
+    default_pw = PartialWitness()
+    c.targets.set_witness(default_pw, Address(0), [], [], [], HashOut.ZERO, HashOut.ZERO)
+    batch = prove_batch(c.data, [purge_pw, default_pw])
+    assert batch == [c.data.prove(purge_pw), c.data.prove(default_pw)]
+    lines = (pathlib.Path(__file__).resolve().parent.parent / "intmax_zkp_core_tpu_torch"
+             / "golden" / "user_tx_small_test.sha256").read_text().splitlines()
+    for proof, line in zip(batch, (lines[0], lines[2])):
+        sha = hashlib.sha256(json.dumps(proof_to_json(proof), sort_keys=True).encode()).hexdigest()
+        assert sha == line.split()[0]
+        c.data.verify(proof)
+
+
+@pytest.mark.cuda
+def test_signature_batch_equals_sequential_in_both_wirings(user_tx_flow):
+    from intmax_zkp_core_tpu_torch.engine.batch_prover import prove_batch
+
+    data, pws = user_tx_flow.zkdsa_circuit.data, user_tx_flow.signature_witnesses
+    sequential = [data.prove(pw) for pw in pws]
+    assert user_tx_flow.signature_proofs == sequential
+    assert prove_batch(data, pws, fused_sponge=True) == sequential
+
+
+@pytest.mark.cuda
+def test_kernels_at_user_tx_batch_shapes(card):
+    """K3 - K7 at the K = 3 user-tx batch's shapes (n = 2^12, L = 2^15, the
+    [3, 135, .] wire matrix and LDE), K2 at its batched rows and K1b on the
+    copied leaves of three trees."""
+    K, n, L, R, C, W = 3, 1 << 12, 1 << 15, 80, 2, 135
+    wires = _rand(91, (K, W, n), card)
+    args = [wires, _rand(92, (K, C), card), _rand(93, (K, C), card), _rand(94, (R, n), card),
+            _rand(95, (R, n), card)]
+    for got, want in zip(pcol.perm_columns_cuda(*args), pcol.perm_columns_plain(*args)):
+        assert torch.equal(got, want)
+    wires_lde = _rand(96, (K, W, L), card)
+    args = [wires_lde, _rand(97, (K, C, L), card), _rand(98, (K, C, 11, L), card)]
+    args += [_rand(99 + i, (K, C), card) for i in range(3)]
+    args += [_rand(102, (R, L), card), _rand(103, (L,), card), _rand(104, (L,), card),
+             _rand(105, (R,), card)]
+    for got, want in zip(pq.perm_quotient_cuda(*args, 8), pq.perm_quotient_plain(*args, 8)):
+        assert torch.equal(got, want)
+    args = [wires_lde, _rand(106, (L,), card), _rand(107, (K, C), card),
+            _rand(108, (K, C, L), card), _rand(109, (K, C), card)]
+    for got, want in zip(gqc.poseidon_gate_quotient_cuda(*args),
+                         gqc.poseidon_gate_quotient_plain(*args)):
+        assert torch.equal(got, want)
+    acc, z_h = _rand(110, (K * C, L), card), _rand(111, (L,), card)
+    assert torch.equal(zm.zinv_mul_cuda(acc, z_h), zm.zinv_mul_plain(acc, z_h))
+    args = [_rand(112, (K, L, 2), card), _rand(113, (K, L, 2), card), _rand(114, (L,), card)]
+    args += [_rand(115 + i, (K, 2), card) for i in range(4)]
+    assert torch.equal(fi.fri_initial_cuda(*args), fi.fri_initial_plain(*args))
+    for B, length in ((K * W, n), (K * W, L), (K * 24, L), (K * 16, L), (2 * K, 256)):
+        x = _rand(B + length, (B, length), card)
+        for inverse in (False, True):
+            assert torch.equal(nc.ntt_cuda(x, inverse), nc.ntt_plain(x, inverse))
+    leaves = wires_lde.transpose(1, 2).reshape(K * L, W)
+    assert torch.equal(pc.hash_no_pad_cuda(leaves), pc.hash_no_pad_plain(leaves))

@@ -225,8 +225,9 @@ def test_prove_goes_through_each_kernel_wrapper_once(zkdsa, instrumented):
 def test_prove_goes_through_the_ntt_wrapper_at_every_ntt(instrumented):
     # the intt and coset-LDE ntt of the wires' and the Z / partial-product
     # commitments, the intt of quotient_finish, the quotient commitment's ntt
-    # and the two coset_ilde of the FRI final polynomial
-    assert instrumented["calls"]["ntt_cuda"] == 8
+    # and one coset_ilde of the FRI final polynomial (both extension
+    # components of every proof of the batch in one call)
+    assert instrumented["calls"]["ntt_cuda"] == 7
 
 
 def test_timings_split_quotient_and_fri_into_parts_that_add_up(zkdsa, instrumented):
@@ -254,8 +255,8 @@ def test_quotient_gates_equals_the_per_constraint_fold(zkdsa):
     def field(*shape):
         return tgl.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64), "cpu")
 
-    wires_lde, pi_hash, alphas = field(cfg.num_wires, lde_n), field(4), field(C)
-    acc, apows = field(C, lde_n), field(C)
+    wires_lde, pi_hash, alphas = field(1, cfg.num_wires, lde_n), field(1, 4), field(1, C)
+    acc, apows = field(1, C, lde_n), field(1, C)
     got = tprover.get_circuit_kernels(pd, "cpu")["quotient_gates"](wires_lde, pi_hash, alphas, acc, apows)
     cs = tgl.from_u64(pd.cs_lde, "cpu")
     const = cs[common.n_sel : common.n_sel + common.n_const_cols]
