@@ -7,7 +7,7 @@ Builds the CUDA kernels from ``intmax_zkp_core_tpu_torch/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card (bit-identical:
 tolerance 0), then drives the port's main path — build a circuit, prove,
 verify — for the zkDSA signature circuit and for a Poseidon hash-chain
-circuit of 2^N rows (default 15, the block circuit's height) at
+circuit of 2^N rows (default 15) at
 ``CircuitConfig.standard_recursion_config()``.  Prints one line per phase, a
 JSON line describing every kernel, and a last JSON line ``{"ok": true, ...}``.
 Any failed phase raises and the script exits non-zero; without a CUDA device
@@ -37,16 +37,36 @@ sequential proof of its witness and the hash in
 ``golden/user_tx_flow_standard.sha256`` (made by the JAX package), and K3 -
 K7 must be launched as often per batch as per single proof.
 
+A fourth path, the block path, finishes the flow on those stages
+(``run_block_flow(prove=True, recursive=True, stages=...)``, the counterpart
+of the reference's ``src/bin/block_circuit.rs``): the recursive block
+circuit at ``test_constants`` (65,536 rows, LDE 2^19; four user-tx and four
+zkDSA proofs verified in the circuit) is built, its witness set, proved in
+the chained wiring and verified (``[block]``, ``[block-phases]``), proved
+again in the fused wiring (``[block-fused]``), and the batch proof of
+``bin/block_circuit.py`` (``prove_batch_over``: two slots, the second
+disabled; ``[batch]``) made over it.  The block circuit's and the batch
+circuit's digests and both proofs' hashes must equal
+``golden/block_flow_standard.sha256`` (made by the JAX package),
+``BlockInfo`` the committed ``test_cases/block1_info.json``, and the block's
+public input the entry hash of the JAX package's check mode; tampered
+proofs are rejected.  Both proofs are made once more through the plain
+versions on the card and must be equal (``[block-plain]``), and one more
+block proof of each wiring is timed (``[kernel-time] path=block``).
+
 Every kernel is held against its plain version at the shapes of each path
-(the chain's 2^N rows, the SMT circuit's 2^12, LDE 8x, and the K = 3 user-tx
-batch's); each such comparison's line names its path.
+(the chain's 2^N rows, the SMT circuit's 2^12, LDE 8x, the K = 3 user-tx
+batch's and the block circuit's 2^16); each such comparison's line names
+its path.
 
 Two lines describe the kernels' code and where the device time of a proof
 goes: ``[sass]`` counts the SASS instructions, IMAD-class instructions,
 registers and stack bytes of every kernel of the library (``cuobjdump``),
-and ``[kernel-time]``, after one more chain proof of each sponge wiring
-and one more user-tx batch and proof under ``torch.profiler``, gives each
-kernel's device milliseconds and launches per proof or batch.
+and ``[kernel-time]``, after one more chain proof of each sponge wiring, one
+more user-tx batch and proof and one more block proof of each wiring, gives
+each kernel's device milliseconds (``torch.profiler``, from a trace whose
+events equal the launches: ``profiled_run``) and launches per proof or
+batch, and the device milliseconds of all kernels.
 
 In the kernels line ``max_abs_err`` is the largest absolute difference
 between a kernel's output and its plain version's, taken on the int64 bit
@@ -1064,7 +1084,18 @@ def phase_chain(device, log_rows):
 
 def phase_chain_plain(circuit, seed, salt, proof):
     """The chain once more with the plain versions on the card: the proof
-    must equal the kernel path's, and no kernel may be launched.
+    must equal the kernel path's, and no kernel may be launched."""
+    timings = {}
+    seconds = plain_path_proof(lambda: circuit.prove(seed, salt, timings=timings), proof)
+    log("chain-plain", prove_s=round(seconds, 3), proof="equal", kernels_launched=0,
+        **{k: round(v, 4) for k, v in timings.items()})
+
+
+def plain_path_proof(prove, proof) -> float:
+    """``prove()`` with the plain versions on the card, which must give
+    ``proof`` and launch no kernel; returns its seconds.  This holds every
+    kernel against its plain version at every shape and on every input the
+    proof gives it.
 
     The port has no switch that sends a tensor on the card to a plain
     version, so for this one comparison every kernel wrapper is replaced by
@@ -1089,22 +1120,21 @@ def phase_chain_plain(circuit, seed, salt, proof):
     )
     before = pc.launch_counts()
     t0 = time.perf_counter()
-    timings = {}
     wrappers = [(module, name, getattr(module, name)) for module, name, _ in swaps]
     try:
         for module, name, plain in swaps:
             setattr(module, name, plain)
-        proof_plain = circuit.prove(seed, salt, timings=timings)
+        proof_plain = prove()
+        torch.cuda.synchronize()
     finally:
         for module, name, wrapper in wrappers:
             setattr(module, name, wrapper)
-    t1 = time.perf_counter()
+    seconds = time.perf_counter() - t0
     if pc.launch_counts() != before:
         raise RuntimeError("the plain-path proof launched a kernel")
     if proof_sha256(proof_plain) != proof_sha256(proof):
         raise RuntimeError("kernel-path and plain-path proofs differ")
-    log("chain-plain", prove_s=round(t1 - t0, 3), proof="equal", kernels_launched=0,
-        **{k: round(v, 4) for k, v in timings.items()})
+    return seconds
 
 
 def phase_native(rng) -> None:
@@ -1250,10 +1280,11 @@ def ntt_batch_shapes(log_rows, K):
     return shapes
 
 
-def phase_user_tx_kernels(device, rng, log_rows, K):
+def phase_user_tx_kernels(device, rng, log_rows, K, path="user_tx"):
     """Every kernel against its plain version at the shapes the K-proof
     user-tx batch gives it (n = 2^log_rows, L = 8 n, 135 wires, R = 80,
-    C = 2), each line tagged ``path=user_tx``: K1 on the chained sponge's
+    C = 2), each line tagged ``path=`` ``path`` (the block path calls it at
+    its own height and K = 1): K1 on the chained sponge's
     states of K trees' leaves [K, L, 12] and first level [K, L/2, 12]; K1b on
     the leaves of K trees as the fused wiring hands them over (the transposed
     [K, w, L] LDE copied to [K L, w], w = 135, 24, 16) and on the level pairs
@@ -1284,7 +1315,7 @@ def phase_user_tx_kernels(device, rng, log_rows, K):
             raise RuntimeError(f"{kernel} wrote a lane not below p: {fields}")
         worst[kernel] = max(worst[kernel], bad)
         err[kernel] = max([err[kernel]] + [max_abs_err(g, w) for g, w in zip(got, want)])
-        log("kernels", kernel=kernel, **fields, path="user_tx", mismatches=bad)
+        log("kernels", kernel=kernel, **fields, path=path, mismatches=bad)
 
     for shape in ((K, L, 12), (K, L // 2, 12)):
         x = rand_field(rng, shape, device)
@@ -1501,38 +1532,61 @@ KERNEL_SYMBOLS = {
 }
 
 
+PROFILE_TRIES, WARM_UP_LAUNCHES = 5, 100
+
+
 def profiled_run(prove, **fields):
     """``prove()`` under torch.profiler (device activity only), the launch
-    counts set to 0 just before it and read just after.  Fails unless the
-    profiler saw one event and some device time for every launch, and no
+    counts set to 0 just before it and read just after.  The profiler loses
+    the first few device records of a trace now and then (a block proof's
+    host-to-device copy and first NTT launches, most often), so each trace
+    opens with ``WARM_UP_LAUNCHES`` empty spin kernels, which no sum counts;
+    a trace whose events still do not equal the launches is taken again, up
+    to ``PROFILE_TRIES`` times (the proofs are deterministic).  Fails unless
+    one trace saw one event and some device time for every launch, and no
     event of a kernel not launched.  Logs a ``[kernel-time]`` line with
-    ``fields``; returns what ``prove()`` gave and {kernel: {"ms", "launches"}}."""
+    ``fields`` and the number of traces taken; returns what ``prove()`` gave
+    and {kernel: {"ms", "launches"}}."""
     from torch.profiler import ProfilerActivity, profile
 
     from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
 
-    pc.reset_launch_counts()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        result = prove()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: n for k, n in pc.launch_counts().items() if n}
-    ms, events, all_ms = {}, {}, 0.0
-    for ev in prof.key_averages():
-        us = ev.device_time_total
-        all_ms += us / 1e3
-        name = next((w for sym, w in KERNEL_SYMBOLS.items() if sym in ev.key), None)
-        if name:
-            ms[name] = ms.get(name, 0.0) + us / 1e3
-            events[name] = events.get(name, 0) + ev.count
-    if events != launches:
-        raise RuntimeError(f"{fields}: profiler events {events} != launches {launches}")
+    short = []
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(WARM_UP_LAUNCHES):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            pc.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = prove()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: n for k, n in pc.launch_counts().items() if n}
+        ms, events, all_ms = {}, {}, 0.0
+        for ev in prof.key_averages():
+            if "spin_kernel" in ev.key:
+                continue
+            us = ev.device_time_total
+            all_ms += us / 1e3
+            name = next((w for sym, w in KERNEL_SYMBOLS.items() if sym in ev.key), None)
+            if name:
+                ms[name] = ms.get(name, 0.0) + us / 1e3
+                events[name] = events.get(name, 0) + ev.count
+        if events == launches:
+            break
+        short.append({k: (events.get(k, 0), n) for k, n in launches.items()
+                      if events.get(k, 0) != n})
+    else:
+        raise RuntimeError(f"{fields}: in {PROFILE_TRIES} traces the profiler's events never "
+                           f"equalled the launches: (events, launches) {short}")
     rows = {k: {"ms": round(ms[k], 4), "launches": n} for k, n in launches.items()}
     if not all(row["ms"] > 0 for row in rows.values()):
         raise RuntimeError(f"the profiler saw no device time for a launched kernel: {rows}")
-    log("kernel-time", **fields, source="torch.profiler", prove_s=round(wall, 3),
-        device_ms_all_kernels=round(all_ms, 3), events_equal_launches=True, **rows)
+    log("kernel-time", **fields, source="torch.profiler", traces=tries, prove_s=round(wall, 3),
+        device_ms_all_kernels=round(all_ms, 3),
+        device_ms_port_kernels=round(sum(row["ms"] for row in rows.values()), 3),
+        events_equal_launches=True, **rows)
     return result, rows
 
 
@@ -1572,6 +1626,157 @@ def phase_user_tx_kernel_time(stages) -> dict:
         k1_per_batch=count(per_batch, "permute_cuda"), k1_per_proof=count(per_proof, "permute_cuda"),
         k2_per_batch=count(per_batch, "ntt_cuda"), k2_per_proof=count(per_proof, "ntt_cuda"))
     return {"batch": per_batch, "proof": per_proof}
+
+
+BLOCK_LOG_ROWS, BATCH_LOG_ROWS = 16, 15  # the recursive block circuit at test_constants; the batch
+# the block circuit's one public input, as the JAX package's check mode of the flow gives it
+ENTRY_HASH = (9738196181870042524, 11696639860342013396, 1907484470672876494, 3974110925381116255)
+
+
+def read_block_golden(path) -> dict:
+    """{"block": (rows, digest, proof hash), "batch": (...)} of
+    ``golden/block_flow_standard.sha256``."""
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines() if ln and not ln.startswith("#")]
+    out = {}
+    for name, (digest_line, proof_line) in zip(("block", "batch"), (lines[0:2], lines[2:4])):
+        tag, *limbs = digest_line.split()[:5]
+        if tag != "circuit_digest":
+            raise RuntimeError(f"{path}: no circuit_digest line for the {name} circuit")
+        rows = int(digest_line.split(";")[1].split()[0])
+        out[name] = (rows, tuple(int(x) for x in limbs), proof_line.split()[0])
+    return out
+
+
+def phase_block(stages, golden, block_info_path):
+    """The block path: ``run_block_flow(prove=True, recursive=True)`` on the
+    card at ``test_constants`` and ``standard_recursion_config``, on the
+    user-tx and signature stages the user-tx path proved already (the flow
+    takes them as ``stages=``): the recursive block circuit (2^16 rows, LDE
+    2^19; four user-tx and four zkDSA proofs verified in the circuit), its
+    witness, its proof in the chained wiring and its verification; then the
+    same witness proved in the fused wiring.  The circuit's digest and the
+    proof's hash must equal the JAX-made golden, ``BlockInfo`` the
+    committed ``test_cases/block1_info.json``, the public input the entry
+    hash of the JAX package's check mode; a tampered proof is rejected.
+    Returns the flow's result and the block circuit's partial witness."""
+    from intmax_zkp_core_tpu_torch.models.rollup import block_flow as bf
+
+    rows, digest, block_hash = golden["block"]
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = bf.run_block_flow(prove=True, recursive=True, stages=stages, timings=timings)
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    block = res.block_circuit
+    data, common = block.data, block.data.common
+    if common.n != rows or common.n != 1 << BLOCK_LOG_ROWS:
+        raise RuntimeError(f"the block circuit has {common.n} rows, the golden {rows}")
+    if tuple(common.circuit_digest) != digest:
+        raise RuntimeError("the block circuit's digest differs from the JAX package's")
+    proof = res.block_proof.proof
+    if proof_sha256(proof) != block_hash:
+        raise RuntimeError(f"block proof hash {proof_sha256(proof)} != golden {block_hash}")
+    with open(block_info_path) as f:
+        if res.block_info.to_json() != json.load(f):
+            raise RuntimeError("BlockInfo differs from test_cases/block1_info.json")
+    if res.block_proof.public_inputs.get_entry_hash().elements != ENTRY_HASH:
+        raise RuntimeError("the block's entry hash differs from the JAX check mode's")
+    if proof.public_inputs != list(ENTRY_HASH):
+        raise RuntimeError("the block proof's public input is not the entry hash")
+    expect_rejected(data, proof)
+    phases = timings["prove_block_phases"]
+    kinds = {}
+    for record in data.prover.generators:
+        kinds[record[0]] = kinds.get(record[0], 0) + 1
+    log("block", rows=common.n, gate_rows=len(data.prover.rows),
+        records=len(data.prover.generators), ext_inverse_records=kinds.get("ext_inverse", 0),
+        gates=",".join(common.gate_ids), circuit_digest="equal", proof="equal to the golden",
+        block_info="equal to test_cases/block1_info.json", entry_hash="equal",
+        tampered="rejected", build_s=round(timings["build_block_circuit"], 3),
+        block_state_s=round(timings["block_state"], 3),
+        witness_s=round(timings["block_witness"], 3), fill_s=round(phases["witness"], 3),
+        prove_s=round(timings["prove_block"], 3), verify_s=round(timings["verify_block"], 3),
+        max_memory_allocated_bytes=peak, flow_s=round(flow_s, 3))
+    log("block-phases", wiring="chained", **{k: round(v, 4) for k, v in phases.items()})
+    expect_parts_add_up(phases)
+
+    pw, _ = block.witness(res.block_detail, stages.user_tx_proofs[2], stages.signature_proofs[1])
+    fused_timings = {}
+    t0 = time.perf_counter()
+    fused = data.prove(pw, fused_sponge=True, timings=fused_timings)
+    torch.cuda.synchronize()
+    if proof_sha256(fused) != proof_sha256(proof):
+        raise RuntimeError("the fused-wiring block proof differs from the chained one")
+    log("block-fused", prove_s=round(time.perf_counter() - t0, 3), proof="equal",
+        **{k: round(v, 4) for k, v in fused_timings.items()})
+    return res, pw
+
+
+def phase_batch(res, golden):
+    """The batch proof of ``bin/block_circuit.py`` (``prove_batch_over``):
+    the batch circuit over ``n_blocks`` = 2 recursive block proofs, the block
+    proof in the first slot and, disabled, in the second; its digest and
+    proof hash must equal the JAX-made golden; it verifies and a tampered
+    copy is rejected.  Returns what ``prove_batch_over`` gave."""
+    from intmax_zkp_core_tpu_torch.bin.block_circuit import prove_batch_over
+
+    rows, digest, batch_hash = golden["batch"]
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    batch = prove_batch_over(res.block_circuit, [res.block_proof.proof], timings=timings)
+    peak = torch.cuda.max_memory_allocated()
+    common = batch.data.common
+    if common.n != rows or common.n != 1 << BATCH_LOG_ROWS:
+        raise RuntimeError(f"the batch circuit has {common.n} rows, the golden {rows}")
+    if tuple(common.circuit_digest) != digest:
+        raise RuntimeError("the batch circuit's digest differs from the JAX package's")
+    if proof_sha256(batch.proof) != batch_hash:
+        raise RuntimeError(f"batch proof hash {proof_sha256(batch.proof)} != golden {batch_hash}")
+    expect_rejected(batch.data, batch.proof)
+    log("batch", n_blocks=res.block_circuit.constants.n_blocks, disabled_slots=1, rows=common.n,
+        gate_rows=len(batch.data.prover.rows), records=len(batch.data.prover.generators),
+        circuit_digest="equal", proof="equal to the golden", tampered="rejected",
+        build_s=round(timings["build_batch_circuit"], 3),
+        witness_s=round(timings["batch_witness"], 3),
+        prove_s=round(timings["prove_batch"], 3), verify_s=round(timings["verify_batch"], 3),
+        max_memory_allocated_bytes=peak)
+    log("batch-phases", **{k: round(v, 4) for k, v in timings["prove_batch_phases"].items()})
+    return batch
+
+
+def phase_block_plain(res, pw, batch) -> None:
+    """The block proof and the batch proof once more with the plain versions
+    on the card (``plain_path_proof``): every kernel held against its plain
+    version at every shape and on every input of both proofs."""
+    data = res.block_circuit.data
+    block_s = plain_path_proof(lambda: data.prove(pw), res.block_proof.proof)
+    batch_s = plain_path_proof(lambda: batch.data.prove(batch.witness), batch.proof)
+    log("block-plain", path="block", block_prove_s=round(block_s, 3),
+        batch_prove_s=round(batch_s, 3), proofs="equal", kernels_launched=0)
+
+
+def phase_block_kernel_time(res, pw) -> dict:
+    """Device milliseconds and launches of each kernel per block proof: one
+    more block proof of each wiring under ``profiled_run``; both must give the
+    flow's proof."""
+    data, proof = res.block_circuit.data, res.block_proof.proof
+    out = {}
+    for wiring, fused in (("chained", False), ("fused", True)):
+        got, out[wiring] = profiled_run(lambda: data.prove(pw, fused_sponge=fused),
+                                        path="block", per="proof", wiring=wiring)
+        if got != proof:
+            raise RuntimeError(f"a profiled block proof ({wiring}) differs from the flow's")
+    count = lambda name: out["chained"].get(name, {}).get("launches")  # noqa: E731
+    for name, want in launches_per_proof().items():
+        if count(name) != want:
+            raise RuntimeError(f"{name}: {count(name)} launches per block proof, not {want}")
+    if count("ntt_cuda") != ntt_launches_per_proof(data.common):
+        raise RuntimeError(f"ntt_cuda: {count('ntt_cuda')} launches per block proof")
+    return out
 
 
 def main() -> int:
@@ -1620,6 +1825,8 @@ def main() -> int:
     err.update(phase_gate_ntt_kernels(device, rng, paths))
     for name, e in phase_user_tx_kernels(device, rng, USER_TX_LOG_ROWS, USER_TX_K).items():
         err[name] = max(err[name], e)
+    for name, e in phase_user_tx_kernels(device, rng, BLOCK_LOG_ROWS, 1, path="block").items():
+        err[name] = max(err[name], e)
     timing = phase_timings(device, rng)
     timing.update(phase_perm_timings(device, rng, args.log_rows))
     timing.update(phase_gate_ntt_timings(device, rng, args.log_rows))
@@ -1656,11 +1863,30 @@ def main() -> int:
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the user-tx path")
     log("user-tx-path-launches", path=user_tx_counts)
+    # the block path (the flow's recursive block proof on those stages, both
+    # wirings, and the batch proof over it), its counts set to 0 just before
+    # it and read just after
+    golden_dir = os.path.dirname(golden)
+    block_golden = read_block_golden(os.path.join(golden_dir, "block_flow_standard.sha256"))
+    pc.reset_launch_counts()
+    block_res, block_pw = phase_block(
+        stages, block_golden, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "test_cases", "block1_info.json"))
+    batch = phase_batch(block_res, block_golden)
+    block_counts = pc.launch_counts()
+    if len(block_counts) != 8:
+        raise RuntimeError(f"expected the counts of eight kernels, got {block_counts}")
+    for name, count in block_counts.items():
+        if count <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the block path")
+    log("block-launches", path=block_counts)
     # comparisons only: after the counts were read
     phase_chain_witness(*chain[:3], *chain_timings)
     phase_chain_plain(*chain)
     per_proof = phase_kernel_time(*chain[:3])
     user_tx_time = phase_user_tx_kernel_time(stages)
+    phase_block_plain(block_res, block_pw, batch)
+    block_time = phase_block_kernel_time(block_res, block_pw)
 
     # ---- 6. the record ----
     csrc, ref = "intmax_zkp_core_tpu_torch/csrc/", "intmax_zkp_core_tpu/ops/"
@@ -1690,7 +1916,10 @@ def main() -> int:
              "bound_by": t["bound_by"], "library_ms": None,
              "bound_ms_as_computed": t["bound_ms_as_computed"], "shape": t["shape"],
              "ms_per_proof": per_proof[wiring][name]["ms"],
-             "launches_per_proof": per_proof[wiring][name]["launches"]})
+             "launches_per_proof": per_proof[wiring][name]["launches"],
+             "launches_block": block_counts[name],
+             "ms_per_block_proof": block_time[wiring][name]["ms"],
+             "launches_per_block_proof": block_time[wiring][name]["launches"]})
     log("done", seconds=round(time.perf_counter() - t_start, 1), log_rows=args.log_rows)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

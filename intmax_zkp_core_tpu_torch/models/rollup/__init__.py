@@ -1,3 +1,5 @@
-"""Rollup layer: block production (reference ``src/rollup/``).  The port has
-the block flow's first stages (``block_flow.py``); the rollup circuits, the
-block data model and their gadgets are not ported yet."""
+"""Rollup layer: block production (reference ``src/rollup/``): the data model
+(``block.py``, ``address_list.py``, ``deposit.py``), the gadgets of the block
+circuit (``gadgets/``), the block-production circuit (``circuits.py``), the
+flow that proves it (``block_flow.py``) and its smallest form
+(``mini_block.py``)."""

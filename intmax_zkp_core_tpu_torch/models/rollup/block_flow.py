@@ -1,17 +1,24 @@
 """End-to-end block production flow -- the counterpart of the reference's
-flagship binary (``src/bin/block_circuit.rs:48-663``) -- its first stages.
+flagship binary (``src/bin/block_circuit.rs:48-663``): two senders (one
+transfer-only, one merging a deposit from the previous block), proposal +
+approval, block assembly, and ``BlockInfo`` (the ``block1_info.json``
+format).
 
 ``prove_user_txs_and_signatures`` runs the flow from building the
-user-transaction circuit through proving the signatures: two senders (one
-transfer-only, one merging a deposit made in the previous block) and a
-default transaction, proved as one batch; the proposal's world state; the
-second sender's signature of it and a default signature, proved as a second
-batch (``prove_batch``; the JAX flow's device rule, a batch on an
-accelerator and a loop of single proofs on the CPU, has nothing to choose
-here: ``prove`` is ``prove_batch`` at K = 1).  It returns the circuits, the five proofs and the
-state the later stages read.  ``run_block_flow`` (the block circuit, its
-witness and ``BlockInfo``) is to call it first; those stages wait for the
-rollup circuits and the recursion gadgets.
+user-transaction circuit through proving the signatures: the two senders'
+transactions and a default one, proved as one batch; the proposal's world
+state; the second sender's signature of it and a default signature, proved
+as a second batch (``prove_batch``; the JAX flow's device rule, a batch on
+an accelerator and a loop of single proofs on the CPU, has nothing to
+choose here: ``prove`` is ``prove_batch`` at K = 1).  ``run_block_flow``
+runs those stages (or takes them from the caller), then builds the block
+circuit, sets its witness, proves and verifies it.
+
+``prove=False`` runs every circuit's witness through
+``CircuitData.check_witness`` (all gate constraints evaluated on the
+subgroup) instead of producing proofs -- the fast integration-test mode; its
+block circuit takes the inner public inputs as checked (trusted
+aggregation), since there is no inner proof to verify in the circuit.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from ...ops import goldilocks as gl
 from ...utils.hash_out import HashOut
 from ...utils.poseidon_host import two_to_one
 from ..merkle_tree.tree import get_merkle_proof
+from ..recursion.gadgets import CheckedPublicInputs
 from ..sparse_merkle_tree import (
     LayeredLayeredSparseMerkleTree,
     SparseMerkleInclusionProof,
@@ -34,11 +42,26 @@ from ..sparse_merkle_tree import (
 from ..sparse_merkle_tree.node_data import NodeDataMemory, RootDataTmp
 from ..sparse_merkle_tree.tree import calc_inclusion_proof
 from ..transaction.block_header import BlockHeader, get_block_hash
-from ..transaction.circuits import make_user_proof_circuit
+from ..transaction.circuits import (
+    MergeAndPurgeTransitionPublicInputs,
+    make_user_proof_circuit,
+)
 from ..transaction.gadgets.merge import MergeProof
 from ..transaction.user_asset_tree import UserAssetTree
 from ..zkdsa.account import Address, private_key_to_account
-from ..zkdsa.circuits import make_simple_signature_circuit
+from ..zkdsa.circuits import SimpleSignaturePublicInputs, make_simple_signature_circuit
+from .address_list import TransactionSenderWithValidity
+from .block import BlockInfo
+from .circuits import BlockDetail, BlockProductionProofWithPublicInputs, make_block_proof_circuit
+from .gadgets.deposit_block import DepositInfo, VariableIndex
+
+
+def _prove_group(circuit, pws: list, prove: bool, fused_sponge: bool, timings) -> list:
+    """One ``prove_batch`` call for the witnesses of one circuit, or, with
+    ``prove=False``, each witness checked."""
+    if not prove:
+        return [CheckedPublicInputs(public_inputs=circuit.data.check_witness(pw)) for pw in pws]
+    return prove_batch(circuit.data, pws, fused_sponge=fused_sponge, timings=timings)
 
 
 @dataclass
@@ -50,7 +73,7 @@ class UserTxStages:
     user_tx_witnesses: list  # PartialWitness: sender 1, sender 2, the default transaction
     user_tx_public_inputs: list  # the MergeAndPurgeTransitionPublicInputs each must give
     user_tx_nonces: list  # HashOut per transaction
-    user_tx_proofs: list
+    user_tx_proofs: list  # proofs, or CheckedPublicInputs when not proving
     signature_witnesses: list  # sender 2's signature of the proposal, the default one
     signature_proofs: list
     aggregator_nodes: NodeDataMemory
@@ -72,10 +95,12 @@ def prove_user_txs_and_signatures(
     device=None,
     fused_sponge: bool = False,
     timings: dict | None = None,
+    prove: bool = True,
 ) -> UserTxStages:
     """The flow's stages ``build_user_tx_circuit`` .. ``prove_signatures``
     (JAX ``models/rollup/block_flow.py::run_block_flow``), on ``device``
-    (``None``: the CUDA device, raising without one).
+    (``None``: the CUDA device, raising without one).  ``prove=False``
+    checks each witness (``check_witness``) instead of proving it.
 
     ``fused_sponge`` goes to the prover.  ``timings``, when given, receives
     seconds per stage (``build_user_tx_circuit``, ``state_setup``,
@@ -226,9 +251,9 @@ def prove_user_txs_and_signatures(
     expected3 = targets.set_witness(pw3, Address(0), [], [], [], HashOut.ZERO, HashOut.ZERO)
     stage.phase("prove_user_txs")
     user_tx_witnesses = [pw1, pw2, pw3]
-    user_tx_proofs = prove_batch(
-        merge_and_purge_circuit.data, user_tx_witnesses, fused_sponge=fused_sponge,
-        timings=phases.get("prove_user_txs"),
+    user_tx_proofs = _prove_group(
+        merge_and_purge_circuit, user_tx_witnesses, prove, fused_sponge,
+        phases.get("prove_user_txs"),
     )
     stage.phase("proposal_state")
 
@@ -251,9 +276,9 @@ def prove_user_txs_and_signatures(
     pw2 = PartialWitness()
     zkdsa_circuit.targets.set_witness(pw2, HashOut.ZERO, HashOut.ZERO)
     signature_witnesses = [pw1, pw2]
-    signature_proofs = prove_batch(
-        zkdsa_circuit.data, signature_witnesses, fused_sponge=fused_sponge,
-        timings=phases.get("prove_signatures"),
+    signature_proofs = _prove_group(
+        zkdsa_circuit, signature_witnesses, prove, fused_sponge,
+        phases.get("prove_signatures"),
     )
     stage.phase("_end")  # closes the last stage
 
@@ -278,3 +303,186 @@ def prove_user_txs_and_signatures(
         prev_latest_account_digest=prev_latest_account_digest,
         merge_proof=merge_proof,
     )
+
+
+@dataclass
+class BlockFlowResult:
+    block_info: BlockInfo
+    block_detail: BlockDetail
+    block_proof: object  # BlockProductionProofWithPublicInputs | public inputs
+    user_tx_proofs: list
+    block_circuit: object
+    merge_proofs: list = None  # sender 2's deposit-merge witness bundle
+    stages: UserTxStages = None
+
+
+def run_block_flow(
+    constants: RollupConstants | None = None,
+    config: CircuitConfig | None = None,
+    prove: bool = True,
+    recursive: bool = True,
+    device=None,
+    timings: dict | None = None,
+    stages: UserTxStages | None = None,
+) -> BlockFlowResult:
+    """The whole flow on ``device`` (``None``: the CUDA device, raising
+    without one).  ``recursive=True`` (reference parity --
+    ``rollup/circuits/mod.rs:450-489``) verifies the user-tx and signature
+    proofs in the block circuit; ``False`` (and every ``prove=False`` run)
+    uses the trusted-aggregation mode (inner proofs verified on the host at
+    witness time -- a weaker object, a much smaller circuit).
+
+    ``stages``: the result of ``prove_user_txs_and_signatures`` at the same
+    constants, config and ``prove``, whose stages are then not run again; the
+    flow goes on changing its world-state tree, so one result serves one
+    flow.  ``timings``, when given, receives seconds per stage (those of
+    ``prove_user_txs_and_signatures`` when it runs, then
+    ``build_block_circuit``, ``block_state``, and ``block_witness``,
+    ``prove_block``, ``verify_block``, or ``check_block``) and, under
+    ``prove_block_phases``, the block prove's seconds per phase."""
+    constants = constants or RollupConstants.test_constants()
+    config = config or CircuitConfig.standard_recursion_config()
+    device = gl.resolve_device(device)
+    if stages is None:
+        stages = prove_user_txs_and_signatures(constants, config, device, timings=timings,
+                                               prove=prove)
+    stage = PhaseTimer(timings, device)
+    block_phases = None
+    if timings is not None and prove:
+        block_phases = timings.setdefault("prove_block_phases", {})
+
+    merge_and_purge_circuit = stages.user_tx_circuit
+    zkdsa_circuit = stages.zkdsa_circuit
+    world_state_tree = stages.world_state_tree
+    sender2_received_signature, default_signature_proof = stages.signature_proofs
+    default_user_tx_proof = stages.user_tx_proofs[2]
+    user_tx_proofs = list(stages.user_tx_proofs[:2])
+    prev_block_header = stages.prev_block_header
+
+    stage.phase("build_block_circuit")
+    block_circuit = make_block_proof_circuit(
+        constants, merge_and_purge_circuit, zkdsa_circuit, config,
+        recursive=recursive and prove, device=device,
+    )
+    stage.phase("block_state")
+
+    block_number = prev_block_header.block_number + 1
+    received_signature_proofs = [None, sender2_received_signature]
+    received_signatures = [
+        None if p is None else SimpleSignaturePublicInputsFromProof(p)
+        for p in received_signature_proofs
+    ]
+
+    latest_account_tree = SparseMerkleTree(
+        NodeDataMemory(), RootDataTmp(stages.prev_latest_account_digest))
+
+    world_state_revert_proofs = []
+    latest_account_process_proofs = []
+    user_transactions = [
+        MergeAndPurgeTransitionPublicInputs.decode(p.public_inputs) for p in user_tx_proofs
+    ]
+    for sig, user_tx in zip(received_signatures, user_transactions):
+        user_address = user_tx.sender_address
+        if sig is None:
+            old_block_number = latest_account_tree.get(user_address.to_hash_out())
+            last_block_number = old_block_number.to_u32()
+            confirmed_user_asset_root = user_tx.middle_user_asset_root
+        else:
+            last_block_number = block_number
+            confirmed_user_asset_root = user_tx.new_user_asset_root
+        latest_account_process_proofs.append(
+            latest_account_tree.set(
+                user_address.to_hash_out(), HashOut.from_u32(last_block_number)
+            )
+        )
+        world_state_revert_proofs.append(
+            world_state_tree.set(user_address.to_hash_out(), confirmed_user_asset_root)
+        )
+
+    prev_block_number = prev_block_header.block_number
+    bh_proof = get_merkle_proof(stages.block_headers, prev_block_number, LOG_MAX_N_BLOCKS)
+
+    sender2_account = stages.sender_accounts[1]
+    block2_deposit_list = [
+        DepositInfo(
+            receiver_address=sender2_account.address,
+            contract_address=Address(1),
+            variable_index=VariableIndex(0),
+            amount=1,
+        )
+    ]
+    block2_deposit_tree = LayeredLayeredSparseMerkleTree(stages.aggregator_nodes, RootDataTmp())
+    deposit_process_proofs = [
+        block2_deposit_tree.set(
+            leaf.receiver_address.to_hash_out(),
+            leaf.contract_address.to_hash_out(),
+            leaf.variable_index.to_hash_out(),
+            HashOut((leaf.amount, 0, 0, 0)),
+        )
+        for leaf in block2_deposit_list
+    ][: constants.n_deposits]
+
+    detail = BlockDetail(
+        block_number=block_number,
+        user_tx_proofs=user_tx_proofs,
+        deposit_process_proofs=deposit_process_proofs,
+        scroll_process_proofs=[],
+        polygon_process_proofs=[],
+        world_state_process_proofs=stages.world_state_process_proofs,
+        world_state_revert_proofs=world_state_revert_proofs,
+        received_signature_proofs=received_signature_proofs,
+        latest_account_process_proofs=latest_account_process_proofs,
+        block_headers_proof_siblings=bh_proof.siblings,
+        prev_block_header=prev_block_header,
+    )
+
+    if prove:
+        stage.phase("block_witness")
+        pw, block_pis = block_circuit.witness(
+            detail, default_user_tx_proof, default_signature_proof)
+        stage.phase("prove_block")
+        proof = block_circuit.data.prove(pw, timings=block_phases)
+        assert proof.public_inputs == list(block_pis.get_entry_hash().elements), (
+            "entry hash mismatch"
+        )
+        block_proof = BlockProductionProofWithPublicInputs(proof=proof, public_inputs=block_pis)
+        stage.phase("verify_block")
+        block_circuit.verify(block_proof)
+    else:
+        stage.phase("check_block")
+        pw, block_pis = block_circuit.witness(
+            detail, default_user_tx_proof, default_signature_proof)
+        got_pis = block_circuit.data.check_witness(pw)
+        assert got_pis == list(block_pis.get_entry_hash().elements), "entry hash mismatch"
+        block_proof = block_pis
+    stage.phase("_end")  # closes the last stage
+
+    # --- BlockInfo (the block1_info.json format) ---
+    address_list = [
+        TransactionSenderWithValidity(
+            sender_address=u.sender_address, is_valid=s is not None
+        )
+        for u, s in zip(user_transactions, received_signatures)
+    ]
+    block_info = BlockInfo(
+        header=block_circuit.targets.computed_block_header,
+        transactions=[u.tx_hash for u in user_transactions],
+        deposit_list=block2_deposit_list,
+        scroll_flag_list=[],
+        polygon_flag_list=[],
+        address_list=address_list,
+    )
+
+    return BlockFlowResult(
+        block_info=block_info,
+        block_detail=detail,
+        block_proof=block_proof,
+        user_tx_proofs=user_tx_proofs,
+        block_circuit=block_circuit,
+        merge_proofs=[stages.merge_proof],
+        stages=stages,
+    )
+
+
+def SimpleSignaturePublicInputsFromProof(proof):
+    return SimpleSignaturePublicInputs.decode(proof.public_inputs)

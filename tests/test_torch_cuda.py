@@ -465,3 +465,90 @@ def test_kernels_at_user_tx_batch_shapes(card):
             assert torch.equal(nc.ntt_cuda(x, inverse), nc.ntt_plain(x, inverse))
     leaves = wires_lde.transpose(1, 2).reshape(K * L, W)
     assert torch.equal(pc.hash_no_pad_cuda(leaves), pc.hash_no_pad_plain(leaves))
+
+
+def _golden_lines(name):
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "intmax_zkp_core_tpu_torch" / "golden"
+    return [ln for ln in (path / name).read_text().splitlines() if not ln.startswith("#")]
+
+
+def _sha(proof):
+    import hashlib
+    import json
+
+    from intmax_zkp_core_tpu_torch.engine.serde import proof_to_json
+
+    return hashlib.sha256(json.dumps(proof_to_json(proof), sort_keys=True).encode()).hexdigest()
+
+
+@pytest.mark.cuda
+def test_mini_recursive_block_equals_the_jax_proofs(card):
+    """``run_mini_recursive_block`` at MINI / MINI_CFG on the card: the block
+    circuit's digest, the four inner proofs and the block proof equal the
+    JAX package's (``golden/mini_block_test.sha256``), and every proof
+    verifies."""
+    from intmax_zkp_core_tpu_torch.models.rollup.mini_block import run_mini_recursive_block
+
+    lines = _golden_lines("mini_block_test.sha256")
+    r = run_mini_recursive_block()
+    block = r["block_circuit"]
+    assert tuple(block.data.common.circuit_digest) == tuple(int(x) for x in lines[0].split()[1:5])
+    assert block.data.common.n == int(lines[0].split(";")[1].split()[0])
+    inner = r["user_tx_proofs"] + r["signature_proofs"]
+    assert [_sha(p) for p in inner + [r["block_proof"].proof]] == [ln.split()[0] for ln in lines[1:6]]
+    block.verify(r["block_proof"])
+
+
+@pytest.mark.cuda
+def test_recursion_outer_proof_on_the_card(card):
+    """The outer circuit of ``test_torch_recursion.py`` proved and verified on
+    the card; a tampered inner proof makes the outer prove fail."""
+    import copy
+
+    from intmax_zkp_core_tpu_torch.engine.circuit import CircuitBuilder
+    from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig, FriConfig
+    from intmax_zkp_core_tpu_torch.engine.witness import PartialWitness
+    from intmax_zkp_core_tpu_torch.models.recursion.gadgets import RecursiveProofTarget
+    from intmax_zkp_core_tpu_torch.models.zkdsa.circuits import make_simple_signature_circuit
+    from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut
+
+    cfg = CircuitConfig(fri=FriConfig(num_query_rounds=3, proof_of_work_bits=2))
+    inner = make_simple_signature_circuit(cfg)
+    builder = CircuitBuilder(cfg)
+    target = RecursiveProofTarget.add_virtual_to(builder, inner.data, in_circuit=True)
+    builder.register_public_inputs(list(target.public_inputs))
+    outer = builder.build()
+    assert tuple(outer.common.circuit_digest) == tuple(
+        int(x) for x in _golden_lines("recursion_zkdsa.sha256")[0].split()[1:5])
+    proof = inner.prove(HashOut.from_u32(7), HashOut.from_u32(555))
+    pw = PartialWitness()
+    target.set_witness(pw, proof, True)
+    outer_proof = outer.prove(pw)
+    assert outer_proof.public_inputs == proof.public_inputs
+    outer.verify(outer_proof)
+    bad = copy.deepcopy(proof)
+    bad.public_inputs[8] = (bad.public_inputs[8] + 1) % P
+    pw = PartialWitness()
+    target.set_witness(pw, bad, True)
+    with pytest.raises(AssertionError):
+        outer.prove(pw)
+
+
+@pytest.mark.cuda
+def test_recursive_block_circuit_at_test_constants_equals_jax(card):
+    """The flagship's recursive block circuit (``test_constants``,
+    ``standard_recursion_config``) built on the card: 65,536 rows and the
+    JAX build's digest (``golden/block_flow_standard.sha256``)."""
+    from intmax_zkp_core_tpu_torch.config import RollupConstants
+    from intmax_zkp_core_tpu_torch.models.rollup.circuits import make_block_proof_circuit
+    from intmax_zkp_core_tpu_torch.models.transaction.circuits import make_user_proof_circuit
+    from intmax_zkp_core_tpu_torch.models.zkdsa.circuits import make_simple_signature_circuit
+
+    constants = RollupConstants.test_constants()
+    block = make_block_proof_circuit(
+        constants, make_user_proof_circuit(constants), make_simple_signature_circuit())
+    line = _golden_lines("block_flow_standard.sha256")[0]
+    assert block.data.common.n == int(line.split(";")[1].split()[0]) == 1 << 16
+    assert tuple(block.data.common.circuit_digest) == tuple(int(x) for x in line.split()[1:5])

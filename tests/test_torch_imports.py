@@ -64,6 +64,13 @@ def test_port_has_its_modules():
         "models/transaction/gadgets/asset_mess.py", "models/transaction/gadgets/block_header.py",
         "models/transaction/gadgets/purge.py", "models/transaction/gadgets/merge.py",
         "models/rollup/__init__.py", "models/rollup/block_flow.py",
+        "models/transaction/asset.py", "engine/recursion.py", "models/recursion/__init__.py",
+        "models/recursion/gadgets.py", "models/rollup/address_list.py",
+        "models/rollup/deposit.py", "models/rollup/block.py", "models/rollup/circuits.py",
+        "models/rollup/mini_block.py", "models/rollup/gadgets/__init__.py",
+        "models/rollup/gadgets/deposit_block.py", "models/rollup/gadgets/block_headers_tree.py",
+        "models/rollup/gadgets/proposal_block.py", "models/rollup/gadgets/approval_block.py",
+        "models/rollup/gadgets/batch.py", "bin/block_circuit.py",
     ):
         assert want in have, want
     # the scan below covers every package directory, bin/ and native/ among them
