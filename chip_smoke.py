@@ -54,10 +54,29 @@ proofs are rejected.  Both proofs are made once more through the plain
 versions on the card and must be equal (``[block-plain]``), and one more
 block proof of each wiring is timed (``[kernel-time] path=block``).
 
+A fifth path, the ECDSA path, proves the 256-bit in-circuit ECDSA
+verification circuit (``models/ecdsa/circuits.py``, the demo binary's
+account and message; 131,072 rows, LDE 2^20) at ``standard_recursion_config``
+in both wirings (``[ecdsa]``, ``[ecdsa-phases]``, ``[ecdsa-fused]``): rows,
+gate rows, digest and proof hash equal to ``golden/ecdsa_256_standard.sha256``
+(made by the JAX package), verified, a tampered copy rejected, the first
+proof's witness split into the fill plan, the native passes and the Python
+generator kinds.  Every kernel but the Poseidon gate's must be launched on
+it (``[ecdsa-launches]``; the circuit has no Poseidon row), and one more
+proof is profiled (``[kernel-time] path=ecdsa``).
+
+After the ECDSA path the flow's three circuits (user-tx, zkDSA, block), as
+the paths above built them, are written to the circuit cache
+(``engine/circuit_cache.py``) in a temporary directory; a fresh process runs
+``bin/block_circuit.py --cache-dir`` on it, must load all three (it leaves
+the files as they were) and its block and batch proofs must equal the
+goldens (``[cache]``: each circuit's load seconds beside its build seconds,
+the files' sizes and write seconds).
+
 Every kernel is held against its plain version at the shapes of each path
 (the chain's 2^N rows, the SMT circuit's 2^12, LDE 8x, the K = 3 user-tx
-batch's and the block circuit's 2^16); each such comparison's line names
-its path.
+batch's, the block circuit's 2^16 and the ECDSA circuit's 2^17); each such
+comparison's line names its path.
 
 Two lines describe the kernels' code and where the device time of a proof
 goes: ``[sass]`` counts the SASS instructions, IMAD-class instructions,
@@ -79,6 +98,7 @@ multiply-adds of the cheapest known way to compute it,
 from __future__ import annotations
 
 import argparse
+import atexit
 import hashlib
 import itertools
 import json
@@ -87,6 +107,7 @@ import shutil
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1659,7 +1680,8 @@ def phase_block(stages, golden, block_info_path):
     proof's hash must equal the JAX-made golden, ``BlockInfo`` the
     committed ``test_cases/block1_info.json``, the public input the entry
     hash of the JAX package's check mode; a tampered proof is rejected.
-    Returns the flow's result and the block circuit's partial witness."""
+    Returns the flow's result, the block circuit's partial witness and the
+    flow's timings."""
     from intmax_zkp_core_tpu_torch.models.rollup import block_flow as bf
 
     rows, digest, block_hash = golden["block"]
@@ -1713,7 +1735,7 @@ def phase_block(stages, golden, block_info_path):
         raise RuntimeError("the fused-wiring block proof differs from the chained one")
     log("block-fused", prove_s=round(time.perf_counter() - t0, 3), proof="equal",
         **{k: round(v, 4) for k, v in fused_timings.items()})
-    return res, pw
+    return res, pw, timings
 
 
 def phase_batch(res, golden):
@@ -1779,6 +1801,217 @@ def phase_block_kernel_time(res, pw) -> dict:
     return out
 
 
+ECDSA_LOG_ROWS = 17  # the 256-bit ECDSA verification circuit at standard_recursion_config
+ECDSA_KINDS = ("ecdsa_biguint", "ecdsa_mul_quotient", "ecdsa_overflow_count")
+
+
+def read_ecdsa_golden(path) -> dict:
+    """{"gate_rows", "rows", "digest", "proof"} of ``golden/ecdsa_256_standard.sha256``."""
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines() if ln and not ln.startswith("#")]
+    if lines[0].split()[0] != "gate_rows" or lines[1].split()[0] != "circuit_digest":
+        raise RuntimeError(f"{path}: no gate_rows and circuit_digest lines")
+    return {"gate_rows": int(lines[0].split()[1]),
+            "rows": int(lines[1].split(";")[1].split()[0]),
+            "digest": tuple(int(x) for x in lines[1].split()[1:5]),
+            "proof": lines[2].split()[0]}
+
+
+class PythonKindTimer:
+    """Within ``with``: the seconds and calls of the native fill's Python
+    passes (``engine.generators.run_generator``, which ``native_fill`` looks
+    up at each fill)."""
+
+    def __enter__(self):
+        from intmax_zkp_core_tpu_torch.engine import generators
+
+        self.module, self.inner = generators, generators.run_generator
+        self.seconds, self.calls = 0.0, 0
+
+        def timed(w, rec):
+            t0 = time.perf_counter()
+            try:
+                return self.inner(w, rec)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        generators.run_generator = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.run_generator = self.inner
+
+
+def phase_ecdsa(golden_path):
+    """The 256-bit in-circuit ECDSA proof on the card
+    (``models/ecdsa/circuits.py::make_ecdsa_verification_circuit`` at
+    ``standard_recursion_config``, the demo binary's account and message):
+    its rows, digest and gate rows equal to the JAX build's, its proof's hash
+    to the JAX proof's (``golden/ecdsa_256_standard.sha256``); it verifies, a
+    tampered copy is rejected, and a proof in the fused wiring is equal.  The
+    witness of the first proof is split into the fill plan, the native
+    passes and the Python kinds' passes.  Returns the circuit and its proof."""
+    from intmax_zkp_core_tpu_torch.bin.ecdsa_verification import demo_triple
+    from intmax_zkp_core_tpu_torch.engine.witness import PartialWitness
+    from intmax_zkp_core_tpu_torch.models.ecdsa.circuits import make_ecdsa_verification_circuit
+    from intmax_zkp_core_tpu_torch.native.witness import get_fill_plan
+
+    golden = read_ecdsa_golden(golden_path)
+    msg, sig, pk = demo_triple(256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    circuit = make_ecdsa_verification_circuit(msg, sig, pk)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    data, common = circuit.data, circuit.data.common
+    gates = {}
+    for gate, _ in data.prover.rows:
+        gates[gate] = gates.get(gate, 0) + 1
+    gate_rows = sum(k for g, k in gates.items() if g not in ("noop", "public_input"))
+    if common.n != golden["rows"] or common.n != 1 << ECDSA_LOG_ROWS:
+        raise RuntimeError(f"the ECDSA circuit has {common.n} rows, the golden {golden['rows']}")
+    if gate_rows != golden["gate_rows"]:
+        raise RuntimeError(f"the ECDSA circuit has {gate_rows} gate rows, the JAX build "
+                           f"{golden['gate_rows']}")
+    if tuple(common.circuit_digest) != golden["digest"]:
+        raise RuntimeError("the ECDSA circuit's digest differs from the JAX package's")
+    kinds = {}
+    for record in data.prover.generators:
+        kinds[record[0]] = kinds.get(record[0], 0) + 1
+    t0 = time.perf_counter()
+    get_fill_plan(data.prover)
+    plan_s = time.perf_counter() - t0
+    timings = {}
+    with PythonKindTimer() as py:
+        t0 = time.perf_counter()
+        proof = circuit.prove(timings=timings)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if proof_sha256(proof) != golden["proof"]:
+        raise RuntimeError(f"ECDSA proof hash {proof_sha256(proof)} != golden {golden['proof']}")
+    t0 = time.perf_counter()
+    circuit.verify(proof)
+    verify_s = time.perf_counter() - t0
+    expect_rejected(data, proof)
+    log("ecdsa", n_bits=256, rows=common.n, gate_rows=gate_rows,
+        gates=",".join(f"{g}:{k}" for g, k in sorted(gates.items())),
+        records=len(data.prover.generators),
+        python_kind_records=sum(kinds.get(k, 0) for k in ECDSA_KINDS),
+        **{f"{k}_records": kinds.get(k, 0) for k in ECDSA_KINDS},
+        circuit_digest="equal", proof="equal to the golden", tampered="rejected",
+        build_s=round(build_s, 3), plan_s=round(plan_s, 3),
+        witness_s=round(timings["witness"], 3),
+        witness_native_s=round(timings["witness"] - py.seconds, 3),
+        witness_python_kinds_s=round(py.seconds, 3), python_kind_calls=py.calls,
+        prove_s=round(prove_s, 3), verify_s=round(verify_s, 3),
+        max_memory_allocated_bytes=peak)
+    log("ecdsa-phases", wiring="chained", **{k: round(v, 4) for k, v in timings.items()})
+    expect_parts_add_up(timings)
+    fused_timings = {}
+    t0 = time.perf_counter()
+    fused = data.prove(PartialWitness(), fused_sponge=True, timings=fused_timings)
+    torch.cuda.synchronize()
+    if proof_sha256(fused) != proof_sha256(proof):
+        raise RuntimeError("the fused-wiring ECDSA proof differs from the chained one")
+    log("ecdsa-fused", prove_s=round(time.perf_counter() - t0, 3), proof="equal",
+        **{k: round(v, 4) for k, v in fused_timings.items()})
+    return circuit, proof
+
+
+def phase_ecdsa_kernel_time(circuit, proof) -> dict:
+    """Device milliseconds and launches of each kernel per 256-bit ECDSA
+    proof (chained wiring) under ``profiled_run``; the proof must be the
+    path's, and no Poseidon-gate kernel is launched (the circuit has no
+    Poseidon row)."""
+    got, rows = profiled_run(lambda: circuit.prove(), path="ecdsa", per="proof",
+                             wiring="chained")
+    if got != proof:
+        raise RuntimeError("a profiled ECDSA proof differs from the path's")
+    want = launches_per_proof()
+    want.pop("poseidon_gate_quotient_cuda")
+    for name, n in want.items():
+        if rows.get(name, {}).get("launches") != n:
+            raise RuntimeError(f"{name}: {rows.get(name)} per ECDSA proof, not {n} launches")
+    if "poseidon_gate_quotient_cuda" in rows:
+        raise RuntimeError("the ECDSA proof launched the Poseidon-gate kernel")
+    if rows["ntt_cuda"]["launches"] != ntt_launches_per_proof(circuit.data.common):
+        raise RuntimeError(f"ntt_cuda: {rows['ntt_cuda']['launches']} launches per ECDSA proof")
+    return rows
+
+
+def fill_cache(cache_dir, stages, block_res) -> dict:
+    """Write the flow's three circuits (user-tx, zkDSA, block), as the user-tx
+    and block paths built them, to the circuit cache under ``cache_dir`` at
+    the files ``run_block_flow(cache_dir=...)`` reads.  Returns each file's
+    ``{"write_s", "bytes"}`` by the circuit's short name."""
+    from intmax_zkp_core_tpu_torch.config import RollupConstants
+    from intmax_zkp_core_tpu_torch.engine import circuit_cache as cc
+    from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig
+    from intmax_zkp_core_tpu_torch.models.rollup import block_flow as bf
+
+    constants = RollupConstants.test_constants()
+    config = CircuitConfig.standard_recursion_config()
+    circuits = {
+        "user_tx": (bf.user_tx_circuit_name(constants), stages.user_tx_circuit),
+        "zkdsa": ("zkdsa", stages.zkdsa_circuit),
+        "block": (bf.block_circuit_name(constants, True, stages.user_tx_circuit,
+                                        stages.zkdsa_circuit), block_res.block_circuit),
+    }
+    written = {}
+    for short, (name, circuit) in circuits.items():
+        t0 = time.perf_counter()
+        size = cc.write_circuit(cc.cache_path(cache_dir, name, config), circuit)
+        written[short] = {"write_s": round(time.perf_counter() - t0, 3), "bytes": size}
+    return written
+
+
+def phase_cache(cache_dir, written, flow_timings, block_timings, golden) -> None:
+    """A fresh process runs ``bin/block_circuit.py --cache-dir`` on the three
+    circuits ``fill_cache`` wrote (user-tx, zkDSA, block): it loads them,
+    proves the flow and the batch over the block proof, and both proofs must
+    equal the JAX-made goldens.  The process must have loaded all three: it
+    leaves the cache's files as they were (a circuit it built instead would
+    be written anew, or beside them under another name).  Logs each
+    circuit's load seconds in that process beside its build seconds in this
+    one and the seconds this one took to write its file."""
+    files = {f: os.stat(os.path.join(cache_dir, f)).st_mtime_ns for f in os.listdir(cache_dir)}
+    if len(files) != 3:
+        raise RuntimeError(f"the cache holds {sorted(files)}, not three circuits")
+    out_json = os.path.join(cache_dir, "block1_info.json")
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "intmax_zkp_core_tpu_torch.bin.block_circuit",
+         "--cache-dir", cache_dir, "--out", out_json],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    process_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"bin/block_circuit.py --cache-dir failed:\n{run.stderr[-4000:]}")
+    after = {f: os.stat(os.path.join(cache_dir, f)).st_mtime_ns for f in os.listdir(cache_dir)
+             if f != "block1_info.json"}
+    if after != files:
+        raise RuntimeError(f"the fresh process did not load every cached circuit: the cache "
+                           f"held {files}, after it {after}")
+    found = dict(re.findall(r"^(block|batch) proof sha256 ([0-9a-f]{64})$", run.stdout, re.M))
+    for name in ("block", "batch"):
+        if found.get(name) != golden[name][2]:
+            raise RuntimeError(f"the cached flow's {name} proof {found.get(name)} != golden "
+                               f"{golden[name][2]}")
+    loads = dict(re.findall(r"(build_\w+_circuit)=([0-9.]+)s", run.stdout.split("circuits (")[1]))
+    build = {**flow_timings, **block_timings}
+    fields = {}
+    for short, info in written.items():
+        stage = f"build_{short}_circuit"
+        fields[short] = {"build_s": round(build[stage], 3), **info, "load_s": float(loads[stage])}
+    log("cache", files=len(files), loaded="all, files unchanged",
+        process="python -m intmax_zkp_core_tpu_torch.bin.block_circuit --cache-dir",
+        process_s=round(process_s, 3), parent_memory_reserved_bytes=reserved,
+        block_proof="equal to the golden", batch_proof="equal to the golden", **fields)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log-rows", type=int, default=15,
@@ -1827,6 +2060,8 @@ def main() -> int:
         err[name] = max(err[name], e)
     for name, e in phase_user_tx_kernels(device, rng, BLOCK_LOG_ROWS, 1, path="block").items():
         err[name] = max(err[name], e)
+    for name, e in phase_user_tx_kernels(device, rng, ECDSA_LOG_ROWS, 1, path="ecdsa").items():
+        err[name] = max(err[name], e)
     timing = phase_timings(device, rng)
     timing.update(phase_perm_timings(device, rng, args.log_rows))
     timing.update(phase_gate_ntt_timings(device, rng, args.log_rows))
@@ -1869,7 +2104,7 @@ def main() -> int:
     golden_dir = os.path.dirname(golden)
     block_golden = read_block_golden(os.path.join(golden_dir, "block_flow_standard.sha256"))
     pc.reset_launch_counts()
-    block_res, block_pw = phase_block(
+    block_res, block_pw, block_timings = phase_block(
         stages, block_golden, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                            "test_cases", "block1_info.json"))
     batch = phase_batch(block_res, block_golden)
@@ -1880,6 +2115,25 @@ def main() -> int:
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the block path")
     log("block-launches", path=block_counts)
+    # the ECDSA path (the 256-bit verification circuit, both wirings), its
+    # counts set to 0 just before it and read just after: every kernel but
+    # the Poseidon gate's, which this circuit has no row for
+    pc.reset_launch_counts()
+    ecdsa, ecdsa_proof = phase_ecdsa(os.path.join(golden_dir, "ecdsa_256_standard.sha256"))
+    ecdsa_counts = pc.launch_counts()
+    for name, count in ecdsa_counts.items():
+        if (count > 0) != (name != "poseidon_gate_quotient_cuda"):
+            raise RuntimeError(f"kernel {name} was launched {count} times on the ECDSA path")
+    log("ecdsa-launches", path=ecdsa_counts)
+    # the flow's three circuits go to a circuit cache, and a fresh process
+    # proves the block flow from it; this process hands back the device
+    # memory its allocator keeps cached
+    cache_dir = tempfile.mkdtemp(prefix="circuit_cache_")
+    atexit.register(shutil.rmtree, cache_dir, True)
+    written = fill_cache(cache_dir, stages, block_res)
+    torch.cuda.empty_cache()
+    phase_cache(cache_dir, written, flow_timings, block_timings, block_golden)
+    shutil.rmtree(cache_dir)
     # comparisons only: after the counts were read
     phase_chain_witness(*chain[:3], *chain_timings)
     phase_chain_plain(*chain)
@@ -1887,6 +2141,7 @@ def main() -> int:
     user_tx_time = phase_user_tx_kernel_time(stages)
     phase_block_plain(block_res, block_pw, batch)
     block_time = phase_block_kernel_time(block_res, block_pw)
+    ecdsa_time = phase_ecdsa_kernel_time(ecdsa, ecdsa_proof)
 
     # ---- 6. the record ----
     csrc, ref = "intmax_zkp_core_tpu_torch/csrc/", "intmax_zkp_core_tpu/ops/"
@@ -1919,7 +2174,10 @@ def main() -> int:
              "launches_per_proof": per_proof[wiring][name]["launches"],
              "launches_block": block_counts[name],
              "ms_per_block_proof": block_time[wiring][name]["ms"],
-             "launches_per_block_proof": block_time[wiring][name]["launches"]})
+             "launches_per_block_proof": block_time[wiring][name]["launches"],
+             "launches_ecdsa": ecdsa_counts[name],
+             "ms_per_ecdsa_proof": ecdsa_time.get(name, {}).get("ms"),
+             "launches_per_ecdsa_proof": ecdsa_time.get(name, {}).get("launches", 0)})
     log("done", seconds=round(time.perf_counter() - t_start, 1), log_rows=args.log_rows)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

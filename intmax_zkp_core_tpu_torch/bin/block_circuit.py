@@ -8,18 +8,24 @@ block proofs over it.
 Like the reference, the block circuit verifies the inner user-tx and
 signature proofs in the circuit (``rollup/circuits/mod.rs:450-489``).
 
-    python -m intmax_zkp_core_tpu_torch.bin.block_circuit [--out PATH] [--check-only] [--fast]
+    python -m intmax_zkp_core_tpu_torch.bin.block_circuit [--out PATH] [--cache-dir DIR] [--check-only] [--fast]
 
 ``--out`` names the JSON file written (default
 ``intmax_zkp_core_tpu_torch/_build/block1_info.json``); the committed vector
-is only read.  ``--check-only`` checks every witness instead of proving
-(no batch proof); ``--fast`` takes the trusted-aggregation mode (inner
-proofs verified on the host at witness time: a weaker object, a much
-smaller circuit).  The flow runs on the CUDA device and raises without one.
+is only read.  ``--cache-dir`` keeps the flow's three circuits (user-tx,
+zkDSA, block) in the circuit cache under DIR: the first run builds and
+writes them, a later one loads them (``engine/circuit_cache.py``).  It prints
+each circuit's build or load seconds and the sha256 of the block and batch
+proofs (of ``json.dumps(proof_to_json(proof), sort_keys=True)``).
+``--check-only`` checks every witness instead of proving (no batch proof);
+``--fast`` takes the trusted-aggregation mode (inner proofs verified on the
+host at witness time: a weaker object, a much smaller circuit).  The flow
+runs on the CUDA device and raises without one.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import sys
@@ -66,15 +72,26 @@ def prove_batch_over(block_circuit, block_proofs: list, device=None,
     return SimpleNamespace(data=data, witness=pw, proof=proof)
 
 
-def main(out=DEFAULT_OUT, prove: bool = True, recursive: bool = True) -> dict:
+def proof_sha256(proof) -> str:
+    from ..engine.serde import proof_to_json
+
+    return hashlib.sha256(json.dumps(proof_to_json(proof), sort_keys=True).encode()).hexdigest()
+
+
+def main(out=DEFAULT_OUT, prove: bool = True, recursive: bool = True,
+         cache_dir: str | None = None) -> dict:
     """Run the flow; returns ``{"flow": BlockFlowResult, "batch"}`` (the
     ``prove_batch_over`` result, ``None`` without proving)."""
     from ..models.rollup.block import BlockInfo
     from ..models.rollup.block_flow import run_block_flow
 
     t0 = time.time()
-    res = run_block_flow(prove=prove, recursive=recursive)
+    timings = {}
+    res = run_block_flow(prove=prove, recursive=recursive, timings=timings, cache_dir=cache_dir)
     print(f"block flow completed in {time.time() - t0:.1f}s", flush=True)
+    circuits = " ".join(f"{k}={timings[k]:.3f}s" for k in
+                        ("build_user_tx_circuit", "build_zkdsa_circuit", "build_block_circuit"))
+    print(f"circuits ({'cache ' + cache_dir if cache_dir else 'built'}): {circuits}", flush=True)
 
     encoded = json.dumps(res.block_info.to_json(), indent=1)
     out = pathlib.Path(out)
@@ -92,6 +109,8 @@ def main(out=DEFAULT_OUT, prove: bool = True, recursive: bool = True) -> dict:
         batch = prove_batch_over(res.block_circuit, [res.block_proof.proof])
         print(f"batch proof ok in {time.time() - t0:.1f}s; rows={batch.data.common.n}",
               flush=True)
+        print(f"block proof sha256 {proof_sha256(res.block_proof.proof)}", flush=True)
+        print(f"batch proof sha256 {proof_sha256(batch.proof)}", flush=True)
     return {"flow": res, "batch": batch}
 
 
@@ -100,8 +119,12 @@ if __name__ == "__main__":
     out = DEFAULT_OUT
     if "--out" in args:
         out = args[args.index("--out") + 1]
+    cache_dir = None
+    if "--cache-dir" in args:
+        cache_dir = args[args.index("--cache-dir") + 1]
     main(
         out=out,
         prove="--check-only" not in args,
         recursive="--fast" not in args,
+        cache_dir=cache_dir,
     )

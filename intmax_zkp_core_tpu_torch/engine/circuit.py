@@ -545,12 +545,34 @@ class ProverCircuitData:
             t = parent[t]
         return t
 
+    # -- serialization (engine/circuit_cache.py): generators are declarative
+    # records and the tables numpy, so the whole prover state pickles.  The
+    # per-process cache a proof attaches, the witness fill plan, is
+    # stripped (the device tables live in prover._KERNELS_CACHE, keyed by
+    # digest); the cap is checked against the stored verifier data on load.
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_fill_plan", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        cap = [tuple(int(x) for x in d) for d in self.cs_tree.cap]
+        if cap != list(self.common.constants_sigmas_cap):
+            raise ValueError("reloaded constants/sigmas commitment does not match the stored cap")
+
 
 @dataclass
 class CircuitData:
     common: CommonCircuitData
     prover: ProverCircuitData
     device: object = None  # torch.device the circuit was built for
+
+    # the device is the loader's (circuit_cache.bind_device), never the
+    # writer's: a pickle holds none
+    def __getstate__(self):
+        return {**self.__dict__, "device": None}
 
     def prove(self, pw, fused_sponge: bool = False, timings=None) -> "object":
         from .prover import prove

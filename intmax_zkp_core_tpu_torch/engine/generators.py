@@ -9,7 +9,7 @@ instead of closures buy two framework features:
 
 * **circuit serialization** — a built ``CircuitData`` (rows, copy classes,
   sigmas, generators) pickles to disk and reloads in a fresh process,
-  skipping the entire build step (not carried into this package yet);
+  skipping the entire build step (``engine/circuit_cache.py``);
 * a future native (C++) witness interpreter can execute the same records.
 
 Model layers register their own kinds at import time via

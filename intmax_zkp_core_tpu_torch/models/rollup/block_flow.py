@@ -19,6 +19,11 @@ circuit, sets its witness, proves and verifies it.
 subgroup) instead of producing proofs -- the fast integration-test mode; its
 block circuit takes the inner public inputs as checked (trusted
 aggregation), since there is no inner proof to verify in the circuit.
+
+``cache_dir`` sends the three circuit builds (user-tx, zkDSA, block) through
+``engine/circuit_cache.py::load_or_build`` under the JAX flow's names; the
+block circuit's name carries the inner circuits' digests.  ``None`` builds
+them.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ...config import LOG_MAX_N_BLOCKS, RollupConstants
+from ...engine.circuit_cache import load_or_build
 from ...engine.config import CircuitConfig
 from ...engine.prover import PhaseTimer, prove_batch
 from ...engine.witness import PartialWitness
@@ -64,6 +70,37 @@ def _prove_group(circuit, pws: list, prove: bool, fused_sponge: bool, timings) -
     return prove_batch(circuit.data, pws, fused_sponge=fused_sponge, timings=timings)
 
 
+def constants_tag(constants: RollupConstants) -> str:
+    """The rollup constants in a circuit cache name (the JAX flow's tag)."""
+    return "x".join(
+        str(v) for v in (
+            constants.log_max_n_users, constants.log_max_n_txs,
+            constants.log_max_n_contracts, constants.log_max_n_variables,
+            constants.log_n_txs, constants.log_n_recipients,
+            constants.log_n_contracts, constants.log_n_variables,
+            constants.n_registrations, constants.n_diffs, constants.n_merges,
+            constants.n_deposits, constants.n_scroll_flags,
+            constants.n_polygon_flags, constants.n_blocks,
+        )
+    )
+
+
+def user_tx_circuit_name(constants: RollupConstants) -> str:
+    """The user-transaction circuit's cache name."""
+    return f"user_tx-{constants_tag(constants)}"
+
+
+def block_circuit_name(constants: RollupConstants, recursive: bool, user_tx_circuit,
+                       zkdsa_circuit) -> str:
+    """The block circuit's cache name: it bakes the inner circuits' verifier
+    data, so their digests belong in it."""
+    inner_tag = "-".join(
+        format(int(c.data.common.circuit_digest[0]), "016x")
+        for c in (user_tx_circuit, zkdsa_circuit)
+    )
+    return f"block-{constants_tag(constants)}-{'rec' if recursive else 'agg'}-{inner_tag}"
+
+
 @dataclass
 class UserTxStages:
     """What the flow's stages up to ``prove_signatures`` give the later ones."""
@@ -96,11 +133,13 @@ def prove_user_txs_and_signatures(
     fused_sponge: bool = False,
     timings: dict | None = None,
     prove: bool = True,
+    cache_dir: str | None = None,
 ) -> UserTxStages:
     """The flow's stages ``build_user_tx_circuit`` .. ``prove_signatures``
     (JAX ``models/rollup/block_flow.py::run_block_flow``), on ``device``
     (``None``: the CUDA device, raising without one).  ``prove=False``
     checks each witness (``check_witness``) instead of proving it.
+    ``cache_dir``: the circuit cache's directory (``None``: build).
 
     ``fused_sponge`` goes to the prover.  ``timings``, when given, receives
     seconds per stage (``build_user_tx_circuit``, ``state_setup``,
@@ -119,7 +158,10 @@ def prove_user_txs_and_signatures(
     stage.phase("build_user_tx_circuit")
     aggregator_nodes = NodeDataMemory()
     world_state_tree = SparseMerkleTree(aggregator_nodes, RootDataTmp())
-    merge_and_purge_circuit = make_user_proof_circuit(constants, config, device)
+    merge_and_purge_circuit = load_or_build(
+        user_tx_circuit_name(constants), config,
+        lambda dev: make_user_proof_circuit(constants, config, dev), cache_dir, device,
+    )
     stage.phase("state_setup")
 
     # --- sender 1: pure transfer (no merges) ---
@@ -267,7 +309,9 @@ def prove_user_txs_and_signatures(
     proposal_world_state_root = world_state_tree.get_root()
 
     stage.phase("build_zkdsa_circuit")
-    zkdsa_circuit = make_simple_signature_circuit(config, device)
+    zkdsa_circuit = load_or_build(
+        "zkdsa", config, lambda dev: make_simple_signature_circuit(config, dev), cache_dir, device,
+    )
     stage.phase("prove_signatures")
     pw1 = PartialWitness()
     zkdsa_circuit.targets.set_witness(
@@ -324,6 +368,7 @@ def run_block_flow(
     device=None,
     timings: dict | None = None,
     stages: UserTxStages | None = None,
+    cache_dir: str | None = None,
 ) -> BlockFlowResult:
     """The whole flow on ``device`` (``None``: the CUDA device, raising
     without one).  ``recursive=True`` (reference parity --
@@ -335,7 +380,8 @@ def run_block_flow(
     ``stages``: the result of ``prove_user_txs_and_signatures`` at the same
     constants, config and ``prove``, whose stages are then not run again; the
     flow goes on changing its world-state tree, so one result serves one
-    flow.  ``timings``, when given, receives seconds per stage (those of
+    flow.  ``cache_dir``: the circuit cache's directory (``None``: build).
+    ``timings``, when given, receives seconds per stage (those of
     ``prove_user_txs_and_signatures`` when it runs, then
     ``build_block_circuit``, ``block_state``, and ``block_witness``,
     ``prove_block``, ``verify_block``, or ``check_block``) and, under
@@ -345,7 +391,7 @@ def run_block_flow(
     device = gl.resolve_device(device)
     if stages is None:
         stages = prove_user_txs_and_signatures(constants, config, device, timings=timings,
-                                               prove=prove)
+                                               prove=prove, cache_dir=cache_dir)
     stage = PhaseTimer(timings, device)
     block_phases = None
     if timings is not None and prove:
@@ -360,9 +406,14 @@ def run_block_flow(
     prev_block_header = stages.prev_block_header
 
     stage.phase("build_block_circuit")
-    block_circuit = make_block_proof_circuit(
-        constants, merge_and_purge_circuit, zkdsa_circuit, config,
-        recursive=recursive and prove, device=device,
+    recursive = recursive and prove
+    block_circuit = load_or_build(
+        block_circuit_name(constants, recursive, merge_and_purge_circuit, zkdsa_circuit), config,
+        lambda dev: make_block_proof_circuit(
+            constants, merge_and_purge_circuit, zkdsa_circuit, config,
+            recursive=recursive, device=dev,
+        ),
+        cache_dir, device,
     )
     stage.phase("block_state")
 

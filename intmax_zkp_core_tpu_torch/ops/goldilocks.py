@@ -88,27 +88,55 @@ def _ult(a, b):
 
 def _lsr32(a):
     """Logical shift right by 32."""
-    return (a >> 32) & MASK32
+    s = a >> 32
+    return s.bitwise_and_(MASK32) if isinstance(s, torch.Tensor) else s & MASK32
+
+
+_P_FLIPPED = P ^ _SIGN
+
+# The functions below build each result from as few elementwise passes and
+# fresh tensors as they can: a carry or borrow is the 0/1 of an in-place
+# compare (``lt_`` / ``gt_`` on a temporary of the result's shape) folded in
+# with ``add_(..., alpha=+-EPSILON)``, not a ``torch.where``, which is
+# several times slower on the CPU.  In-place operations only ever write
+# temporaries of the broadcast result's shape, never an argument.
+
+
+def _wrapped(s, a):
+    """0/1: the sum s = a + b wrapped past 2^64 (s <u a); ``s`` has the
+    broadcast shape."""
+    return (s ^ _SIGN).lt_(a ^ _SIGN)
+
+
+def _borrowed(d, a):
+    """0/1: the difference d = a - b wrapped below 0 (d >u a); ``d`` has the
+    broadcast shape."""
+    return (d ^ _SIGN).gt_(a ^ _SIGN)
+
+
+def _canonicalize_(x: torch.Tensor) -> torch.Tensor:
+    """``canonicalize`` in place, on a temporary."""
+    # x - p = x + EPSILON (mod 2^64)
+    return x.add_((x ^ _SIGN).ge_(_P_FLIPPED), alpha=EPSILON)
 
 
 def canonicalize(x: torch.Tensor) -> torch.Tensor:
     """Map any u64 into canonical [0, p)."""
-    return torch.where(_ult(x, P), x, x - P)
+    return _canonicalize_(x.clone())
 
 
 def add(a, b):
     """(a + b) mod p for canonical inputs."""
     s = a + b
-    # wrapped iff s < a; 2^64 = EPSILON (mod p)
-    s = torch.where(_ult(s, a), s + EPSILON, s)
-    return torch.where(_ult(s, P), s, s - P)
+    # 2^64 = EPSILON (mod p)
+    return _canonicalize_(s.add_(_wrapped(s, a), alpha=EPSILON))
 
 
 def sub(a, b):
     """(a - b) mod p for canonical inputs."""
     d = a - b
-    # borrow iff a < b; -2^64 = -EPSILON (mod p)
-    return torch.where(_ult(a, b), d - EPSILON, d)
+    # -2^64 = -EPSILON (mod p)
+    return d.add_(_borrowed(d, a), alpha=-EPSILON)
 
 
 def neg(a):
@@ -117,20 +145,28 @@ def neg(a):
 
 def _mul_128(a, b):
     """Full 64x64 -> 128-bit product as (hi, lo) u64 bit patterns."""
-    a_lo = a & MASK32
-    a_hi = _lsr32(a)
-    b_lo = b & MASK32
-    b_hi = _lsr32(b)
+    a_lo, a_hi = a & MASK32, _lsr32(a)
+    b_lo, b_hi = b & MASK32, _lsr32(b)
     ll = a_lo * b_lo
     lh = a_lo * b_hi
     hl = a_hi * b_lo
     hh = a_hi * b_hi
-    # mid = lh + hl, tracking the single possible carry into bit 64
-    mid = lh + hl
-    mid_carry = _ult(mid, lh).to(torch.int64)
-    lo = ll + (mid << 32)
-    lo_carry = _ult(lo, ll).to(torch.int64)
-    hi = hh + _lsr32(mid) + (mid_carry << 32) + lo_carry
+    # the middle column, with the carry out of the low word: < 3 * 2^32
+    t = _lsr32(ll).add_(lh & MASK32).add_(hl & MASK32)
+    lo = ll.bitwise_and_(MASK32).bitwise_or_(t << 32)
+    hi = hh.add_(_lsr32(lh)).add_(_lsr32(hl)).add_(t.bitwise_right_shift_(32))
+    return hi, lo
+
+
+def _square_128(a):
+    """``_mul_128(a, a)`` with the two cross products taken once."""
+    a_lo, a_hi = a & MASK32, _lsr32(a)
+    ll = a_lo * a_lo
+    lh = a_lo * a_hi
+    hh = a_hi.mul_(a_hi)
+    t = _lsr32(ll).add_((lh & MASK32).bitwise_left_shift_(1))  # < 3 * 2^32
+    lo = ll.bitwise_and_(MASK32).bitwise_or_(t << 32)
+    hi = hh.add_(_lsr32(lh).bitwise_left_shift_(1)).add_(t.bitwise_right_shift_(32))
     return hi, lo
 
 
@@ -141,23 +177,20 @@ def reduce128(hi, lo):
       x = lo + hi_lo*(2^32 - 1) - hi_hi   (mod p)
     """
     hi_hi = _lsr32(hi)
-    hi_lo = hi & MASK32
     t0 = lo - hi_hi
-    t0 = torch.where(_ult(lo, hi_hi), t0 - EPSILON, t0)
-    t1 = hi_lo * EPSILON  # < 2^64, no overflow
-    t2 = t0 + t1
-    t2 = torch.where(_ult(t2, t0), t2 + EPSILON, t2)
-    return torch.where(_ult(t2, P), t2, t2 - P)
+    t0.add_(_borrowed(t0, lo), alpha=-EPSILON)
+    t2 = torch.add(t0, hi & MASK32, alpha=EPSILON)  # hi_lo * EPSILON < 2^64
+    return _canonicalize_(t2.add_(_wrapped(t2, t0), alpha=EPSILON))
 
 
 def mul(a, b):
-    """(a * b) mod p for canonical inputs."""
+    """(a * b) mod p for any u64 inputs (canonical output)."""
     hi, lo = _mul_128(a, b)
     return reduce128(hi, lo)
 
 
 def square(a):
-    return mul(a, a)
+    return reduce128(*_square_128(a))
 
 
 def pow_const(a, e: int):
@@ -186,8 +219,7 @@ def mul_small(a, c: int):
     hi_part = _lsr32(a) * c  # < 2^52
     # value = lo_part + hi_part * 2^32  (< 2^85) -> (hi, lo) pair
     s = lo_part + (hi_part << 32)
-    carry = _ult(s, lo_part).to(torch.int64)
-    hi = _lsr32(hi_part) + carry
+    hi = _lsr32(hi_part).add_(_wrapped(s, lo_part))
     return reduce128(hi, s)
 
 

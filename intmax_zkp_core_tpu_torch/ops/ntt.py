@@ -46,7 +46,24 @@ def _twiddle_tables(log_n: int, inverse: bool, device: torch.device):
     return torch.from_numpy(rev).to(device), tables
 
 
+# On the CPU the plain transform takes its rows in blocks of about this many
+# elements: each radix-2 stage's passes then work on 512 KB, in the core's
+# cache, not on the whole matrix.
+CPU_BLOCK_ELEMENTS = 1 << 16
+
+
 def _ntt_impl(a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    n = a.shape[-1]
+    rows = max(1, CPU_BLOCK_ELEMENTS // n)
+    if not a.is_cuda and a.numel() > rows * n:
+        flat = a.reshape(-1, n)
+        return torch.cat([
+            _ntt_rows(flat[i : i + rows], inverse) for i in range(0, flat.shape[0], rows)
+        ]).reshape(a.shape)
+    return _ntt_rows(a, inverse)
+
+
+def _ntt_rows(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     orig_shape = a.shape
     n = orig_shape[-1]
     log_n = n.bit_length() - 1

@@ -90,25 +90,42 @@ def _mds_layer(state: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """M @ state along ``dim`` (size 12), via 32-bit limb accumulation.
 
     The two limb sums acc[r] = sum_c M[r][c] * limb[c] are one small matrix
-    product each, taken in float64: the coefficients are <= 49 and the limbs
-    < 2^32, so every partial sum is an integer below 2^42 < 2^53 and the
-    product is exact in any summation order.  A single (hi, lo)
-    recombination + reduce128 per output lane follows.
+    product each, taken in float64: the coefficients are <= 49 and sum to
+    at most 264 along a row, and the limbs are < 2^32, so every partial sum
+    is an integer below 2^41 < 2^53 and the product is exact in any
+    summation order.  The value acc_lo + acc_hi * 2^32 is then
+    acc_lo + (acc_hi >> 32) * 2^64 + (acc_hi mod 2^32) * 2^32, and
+    2^64 = EPSILON (mod p) folds its top into a sum below 2^42.
     """
     x = state.movedim(dim, -1)
     mt = _mds_matrix_t(x.device)
     acc_lo = ((x & gl.MASK32).double() @ mt).to(torch.int64)
     acc_hi = (gl._lsr32(x).double() @ mt).to(torch.int64)
-    # value = acc_lo + acc_hi * 2^32, both < 2^42
-    s = acc_lo + (acc_hi << 32)
-    carry = gl._ult(s, acc_lo).to(torch.int64)
-    top = gl._lsr32(acc_hi) + carry
-    return gl.reduce128(top, s).movedim(-1, dim)
+    low = torch.add(acc_lo, acc_hi >> 32, alpha=gl.EPSILON)  # < 2^42
+    s = acc_hi.bitwise_left_shift_(32).add_(low)
+    s.add_(gl._wrapped(s, low), alpha=gl.EPSILON)
+    return gl._canonicalize_(s).movedim(-1, dim)
+
+
+# On the CPU the plain permutation runs in blocks of this many states: its
+# elementwise passes then work on 384 KB, in the core's cache, not on the
+# whole batch.
+CPU_BLOCK_STATES = 4096
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch Poseidon permutation over [..., 12] tensors (any
     device): 4 full, 22 partial, 4 full rounds."""
+    block = CPU_BLOCK_STATES
+    if not state.is_cuda and state.numel() > block * SPONGE_WIDTH:
+        flat = state.reshape(-1, SPONGE_WIDTH)
+        return torch.cat([
+            _permute_block(flat[i : i + block]) for i in range(0, flat.shape[0], block)
+        ]).reshape(state.shape)
+    return _permute_block(state)
+
+
+def _permute_block(state: torch.Tensor) -> torch.Tensor:
     rc = _round_constants(state.device)
     h = HALF_N_FULL_ROUNDS
     for rnd in range(N_ROUNDS):

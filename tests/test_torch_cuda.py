@@ -552,3 +552,53 @@ def test_recursive_block_circuit_at_test_constants_equals_jax(card):
     line = _golden_lines("block_flow_standard.sha256")[0]
     assert block.data.common.n == int(line.split(";")[1].split()[0]) == 1 << 16
     assert tuple(block.data.common.circuit_digest) == tuple(int(x) for x in line.split()[1:5])
+
+
+@pytest.mark.cuda
+def test_cached_circuit_proves_equal_to_its_fresh_build(card, tmp_path):
+    """A zkDSA circuit through the circuit cache: written by a build on the
+    CPU, read back for the card (``load_or_build``'s device is the
+    caller's), and written by a build on the card and read back from disk;
+    every proof equals the fresh build's."""
+    from intmax_zkp_core_tpu_torch.engine import circuit_cache as cc
+    from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig, FriConfig
+    from intmax_zkp_core_tpu_torch.models.zkdsa.circuits import make_simple_signature_circuit
+    from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut
+
+    cfg = CircuitConfig(fri=FriConfig(num_query_rounds=3, proof_of_work_bits=2))
+    sk, msg = HashOut.from_u64(42), HashOut.from_u64(0xABCDEF)
+    fresh = make_simple_signature_circuit(cfg).prove(sk, msg)
+    build = lambda device: make_simple_signature_circuit(cfg, device)  # noqa: E731
+    cc._MEMO.clear()
+    cpu_dir, card_dir = str(tmp_path / "cpu"), str(tmp_path / "card")
+    written_on_cpu = cc.load_or_build("zkdsa", cfg, build, cpu_dir, device="cpu")
+    assert _sha(written_on_cpu.prove(sk, msg)) == _sha(fresh)
+    cc._MEMO.clear()
+    loaded = cc.load_or_build("zkdsa", cfg, build, cpu_dir)
+    assert loaded.data.device.type == "cuda"
+    assert _sha(loaded.prove(sk, msg)) == _sha(fresh)
+    cc.load_or_build("zkdsa", cfg, build, card_dir)
+    cc._MEMO.clear()
+    assert _sha(cc.load_or_build("zkdsa", cfg, build, card_dir).prove(sk, msg)) == _sha(fresh)
+    cc._MEMO.clear()
+
+
+@pytest.mark.cuda
+def test_ecdsa_16_proof_equals_the_cpu_port(card):
+    """The n_bits = 16 ECDSA verification circuit at the tiny config proved on
+    the card: rows, digest and proof equal the JAX-made golden
+    (``golden/ecdsa_16_test.sha256``), which the CPU port's proof equals
+    (``test_torch_ecdsa.py``)."""
+    from intmax_zkp_core_tpu_torch.bin.ecdsa_verification import demo_triple
+    from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig, FriConfig
+    from intmax_zkp_core_tpu_torch.models.ecdsa.circuits import make_ecdsa_verification_circuit
+
+    msg, sig, pk = demo_triple(16)
+    cfg = CircuitConfig(fri=FriConfig(num_query_rounds=6, proof_of_work_bits=4))
+    circuit = make_ecdsa_verification_circuit(msg, sig, pk, config=cfg, n_bits=16)
+    lines = _golden_lines("ecdsa_16_test.sha256")
+    assert circuit.data.common.n == int(lines[1].split(";")[1].split()[0]) == 8192
+    assert tuple(circuit.data.common.circuit_digest) == tuple(int(x) for x in lines[1].split()[1:5])
+    proof = circuit.prove()
+    assert _sha(proof) == lines[2].split()[0]
+    circuit.verify(proof)

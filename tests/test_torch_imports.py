@@ -71,6 +71,8 @@ def test_port_has_its_modules():
         "models/rollup/gadgets/deposit_block.py", "models/rollup/gadgets/block_headers_tree.py",
         "models/rollup/gadgets/proposal_block.py", "models/rollup/gadgets/approval_block.py",
         "models/rollup/gadgets/batch.py", "bin/block_circuit.py",
+        "engine/circuit_cache.py", "models/ecdsa/__init__.py", "models/ecdsa/account.py",
+        "models/ecdsa/gadgets.py", "models/ecdsa/circuits.py", "bin/ecdsa_verification.py",
     ):
         assert want in have, want
     # the scan below covers every package directory, bin/ and native/ among them

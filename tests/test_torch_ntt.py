@@ -288,3 +288,18 @@ def test_eval_poly_match():
     want_e = np.asarray(jnt.eval_poly_at_ext(jnp.asarray(coeffs), jnp.asarray(xe)))
     got_e = tnt.eval_poly_at_ext(tgl.from_u64(coeffs, "cpu"), tgl.from_u64(xe, "cpu"))
     assert (tgl.to_u64(got_e) == want_e).all()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cpu_blocks_give_the_whole_batch(monkeypatch, inverse):
+    """On the CPU the plain transform takes its rows in blocks of about
+    ``CPU_BLOCK_ELEMENTS`` elements; blocks of 3 rows over [7, 64] and
+    [2, 5, 64] give the unblocked transform and the JAX package's."""
+    x = tgl.from_u64(_rand(31, (7, 64)), "cpu")
+    whole = tnt._ntt_rows(x, inverse)
+    monkeypatch.setattr(tnt, "CPU_BLOCK_ELEMENTS", 3 * 64)
+    assert torch.equal(tnt._ntt_impl(x, inverse), whole)
+    y = tgl.from_u64(_rand(32, (2, 5, 64)), "cpu")
+    assert torch.equal(tnt._ntt_impl(y, inverse), tnt._ntt_rows(y, inverse))
+    jfn = jnt.intt if inverse else jnt.ntt
+    assert (tgl.to_u64(whole) == np.asarray(jfn(jnp.asarray(tgl.to_u64(x))))).all()

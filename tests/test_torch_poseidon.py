@@ -240,3 +240,17 @@ def test_wrappers_reject_bad_arguments():
         tpc.permute_cuda(torch.zeros((4, 11), dtype=torch.int64))
     with pytest.raises(ValueError):
         tpc.hash_no_pad_cuda(torch.zeros((4, 3, 8), dtype=torch.int64))
+
+
+def test_cpu_blocks_give_the_whole_batch(monkeypatch):
+    """On the CPU the plain permutation runs its rows in blocks of
+    ``CPU_BLOCK_STATES``; blocks of 5 states over 37 rows, noncanonical
+    lanes among them, give the unblocked batch and the exact Python
+    permutation."""
+    x = _t(_noncanonical_states(21, 37))
+    whole = tps._permute_block(x)
+    monkeypatch.setattr(tps, "CPU_BLOCK_STATES", 5)
+    assert torch.equal(tps.permute(x), whole)
+    assert torch.equal(tps.permute(x.reshape(37, 1, 12)), whole.reshape(37, 1, 12))
+    want = [tps.permute_s([int(v) for v in row]) for row in tgl.to_u64(x[:4])]
+    assert tgl.to_u64(whole[:4]).tolist() == want
