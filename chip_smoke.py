@@ -73,6 +73,26 @@ the files as they were) and its block and batch proofs must equal the
 goldens (``[cache]``: each circuit's load seconds beside its build seconds,
 the files' sizes and write seconds).
 
+A sixth path, the mesh path (``parallel/``), runs with every shard on this
+card (``[mesh-*]``): the four-step LDE and the Merkle tree of the block's
+wire commitment ([135, 2^16] -> 2^19) over 2 and 4 shards in both wirings,
+equal to the unsharded ones, with 2d NTT launches per LDE against 2 and d
+times the unsharded tree's Poseidon launches (``[mesh-commit]``); the block
+proof under ``use_commit_mesh`` over 2 shards, equal to its golden, its
+seconds and peak memory beside an unsharded later proof's
+(``[mesh-block]``); the K = 3 user-tx batch over 2 shards, equal to the
+flow's goldens (``[mesh-user-tx]``); ``run_mini_recursive_block`` over 2
+shards, equal to ``golden/mini_block_test.sha256`` (``[mesh-mini]``); the
+distributed prove step at [2^18, 12] states and a 2^20 polynomial
+(``[mesh-step]``); where the machine has several cards, the LDE and tree
+over ``make_mesh()`` (``[mesh-cards]``).  Every kernel must be launched on
+it (``[mesh-launches]``).  Then two processes
+(``tests/torch_distributed_worker.py``, gloo, both ranks on this card, a 2 x 2
+mesh) prove five zkDSA witnesses over the proof axis, each rank's gathered
+proofs equal to single-process ones (``[mesh-processes]``), and a fresh
+process runs ``runtime.warmup()`` before its first zkDSA proof
+(``[warmup]``).
+
 Every kernel is held against its plain version at the shapes of each path
 (the chain's 2^N rows, the SMT circuit's 2^12, LDE 8x, the K = 3 user-tx
 batch's, the block circuit's 2^16 and the ECDSA circuit's 2^17); each such
@@ -1028,6 +1048,7 @@ def phase_zkdsa(device, golden_path):
         sha256=digest, golden="equal",
         launches_build={k: c1[k] - c0[k] for k in c1 if c1[k] - c0[k]},
         launches_prove={k: c2[k] - c1[k] for k in c2 if c2[k] - c1[k]})
+    return t2 - t1
 
 
 def expect_parts_add_up(timings: dict) -> None:
@@ -2012,6 +2033,321 @@ def phase_cache(cache_dir, written, flow_timings, block_timings, golden) -> None
         block_proof="equal to the golden", batch_proof="equal to the golden", **fields)
 
 
+MESH_SHARDS = (2, 4)  # shards on one card for the sharded LDE and tree
+MESH_STEP_STATES, MESH_STEP_LOG_N = 1 << 18, 20  # make_distributed_prove_step's shapes
+MESH_WORKER_K, MESH_WORKER_TIMEOUT_S = 5, 300  # the two-process run: zkDSA witnesses, seconds
+MESH_MIXED_K = 3  # zkDSA witnesses over the card and the CPU (padded to 4 lanes)
+
+
+def mesh_references(device, rng, stages, block_res, block_pw) -> dict:
+    """What the ``[mesh]`` path is held against, made before its launch counts
+    are set to 0: the block's wire commitment [135, 2^16] -> LDE 2^19 and its
+    Merkle levels (cap height 4) in both wirings, unsharded, with the launches
+    of each; a later unsharded block proof with its phases and peak memory;
+    the unsharded permutation, NTT and root of the prove step's inputs (the
+    root by ``ops/merkle.py``'s unsharded levels at cap height 0); the
+    zkDSA witnesses of the card-and-CPU mesh with their one-device proofs."""
+    from intmax_zkp_core_tpu_torch.ops import merkle as mk
+    from intmax_zkp_core_tpu_torch.ops import ntt as nt
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+    from intmax_zkp_core_tpu_torch.ops.ntt_cuda import ntt_cuda
+
+    ref = {"coeffs": rand_field(rng, (135, 1 << BLOCK_LOG_ROWS), device)}
+    before = pc.launch_counts()
+    ref["lde"] = nt.coset_lde(ref["coeffs"], 3)
+    ref["lde_launches"] = launch_diff(pc.launch_counts(), before)
+    for fused in (False, True):
+        before = pc.launch_counts()
+        ref[fused] = mk.build_merkle_levels_batch(ref["lde"].t()[None], 4, fused_sponge=fused)
+        ref[f"tree_launches_{fused}"] = launch_diff(pc.launch_counts(), before)
+    data = block_res.block_circuit.data
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = data.prove(block_pw, timings=timings)
+    torch.cuda.synchronize()
+    ref["block"] = {"prove_s": time.perf_counter() - t0, "phases": timings,
+                    "peak": torch.cuda.max_memory_allocated()}
+    if proof != block_res.block_proof.proof:
+        raise RuntimeError("a later unsharded block proof differs from the flow's")
+    ref["states"] = rand_field(rng, (MESH_STEP_STATES, 12), device)
+    ref["poly"] = rand_field(rng, (1 << MESH_STEP_LOG_N,), device)
+    ref["hashed"] = pc.permute_cuda(ref["states"])
+    ref["evals"] = ntt_cuda(ref["poly"][None], False)[0]
+    ref["root"] = mk.build_merkle_levels_batch(ref["hashed"][:, :4][None], 0)[-1][0, 0]
+    ref["zkdsa_pws"] = zkdsa_witnesses(stages.zkdsa_circuit, MESH_MIXED_K)
+    ref["zkdsa_proofs"] = [stages.zkdsa_circuit.data.prove(pw) for pw in ref["zkdsa_pws"]]
+    return ref
+
+
+def zkdsa_witnesses(circuit, k) -> list:
+    """The zkDSA witnesses of the mesh phases: public keys 101 + i, messages
+    7 + i."""
+    from intmax_zkp_core_tpu_torch.engine.witness import PartialWitness
+    from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut
+
+    pws = []
+    for i in range(k):
+        pw = PartialWitness()
+        circuit.targets.set_witness(pw, HashOut.from_u64(101 + i), HashOut.from_u64(7 + i))
+        pws.append(pw)
+    return pws
+
+
+def phase_mesh(ref, stages, block_res, block_pw, block_golden, golden_dir) -> dict:
+    """The ``[mesh]`` path (``parallel/``) on the card, shards on one device:
+    the sharded LDE and Merkle tree at the block's wire commitment over
+    ``MESH_SHARDS`` shards in both wirings (K2 launched 2d times per LDE
+    against 2 unsharded; K1 or K1b d times as often as unsharded); the block
+    proof with its commitments over a commit mesh of 2 shards, equal to the
+    golden; the K = 3 user-tx batch over 2 shards (padded to 4, one lane
+    dropped), equal to the flow's goldens; ``run_mini_recursive_block`` over
+    2 shards, equal to ``golden/mini_block_test.sha256``; two distinct
+    devices, the card and the CPU: zkDSA proofs with the proof axis over
+    them (one host thread per device, both at once) and with the
+    commitments over them (the exchanges copy between the two), equal to
+    one-device proofs; the distributed prove step at [2^18, 12] states and a
+    2^20 polynomial, equal to the unsharded kernels.  Every mismatch fails
+    the run.  Returns the block proof's numbers."""
+    from intmax_zkp_core_tpu_torch.engine.batch_prover import prove_batch
+    from intmax_zkp_core_tpu_torch.models.rollup.mini_block import run_mini_recursive_block
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+    from intmax_zkp_core_tpu_torch.parallel import merkle_sharded as ms
+    from intmax_zkp_core_tpu_torch.parallel.mesh import Mesh, gather, make_mesh, use_commit_mesh
+    from intmax_zkp_core_tpu_torch.parallel.ntt_sharded import coset_lde_sharded
+    from intmax_zkp_core_tpu_torch.parallel.prove_step import make_distributed_prove_step
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    # the sharded LDE and tree at the block's wire commitment
+    for d in MESH_SHARDS:
+        mesh = Mesh([card] * d)
+        before = pc.launch_counts()
+        parts = coset_lde_sharded(ref["coeffs"], 3, mesh)
+        lde_launches = launch_diff(pc.launch_counts(), before)
+        bad = mismatches(gather(parts, -1, card), ref["lde"])
+        want = {"ntt_cuda": 2 * d}
+        if bad or lde_launches != want or ref["lde_launches"] != {"ntt_cuda": 2}:
+            raise RuntimeError(f"sharded LDE over {d}: {bad} mismatches, launches {lde_launches} "
+                               f"(unsharded {ref['lde_launches']})")
+        for fused in (False, True):
+            before = pc.launch_counts()
+            levels = ms.build_merkle_levels_sharded([p.t() for p in parts], 4, mesh,
+                                                    fused_sponge=fused)
+            tree_launches = launch_diff(pc.launch_counts(), before)
+            unsharded = ref[f"tree_launches_{fused}"]
+            bad = sum(mismatches(gather(lv, -2, card), w[0]) for lv, w in zip(levels, ref[fused]))
+            if bad or len(levels) != len(ref[fused]) or tree_launches != {
+                    k: d * v for k, v in unsharded.items()}:
+                raise RuntimeError(f"sharded tree over {d} ({'fused' if fused else 'chained'}): "
+                                   f"{bad} mismatches, launches {tree_launches} against "
+                                   f"{d} x {unsharded}")
+            log("mesh-commit", shards=d, device=str(card), lde="1 << 19 of 135 rows",
+                lde_mismatches=0, ntt_launches=lde_launches["ntt_cuda"],
+                ntt_launches_unsharded=ref["lde_launches"]["ntt_cuda"],
+                wiring="fused" if fused else "chained", levels=len(levels),
+                tree_mismatches=0, tree_launches=tree_launches, tree_launches_unsharded=unsharded,
+                sharded_tree_calls=ms.SHARDED_TREE_CALLS)
+    # the block proof, its commitments over a commit mesh of 2 shards
+    data = block_res.block_circuit.data
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = ms.SHARDED_TREE_CALLS
+    t0 = time.perf_counter()
+    with use_commit_mesh(Mesh([card] * 2)):
+        proof = data.prove(block_pw, timings=timings)
+    torch.cuda.synchronize()
+    block = {"prove_s": time.perf_counter() - t0, "phases": timings,
+             "peak": torch.cuda.max_memory_allocated()}
+    if proof_sha256(proof) != block_golden["block"][2] or ms.SHARDED_TREE_CALLS != calls + 3:
+        raise RuntimeError(f"the commit-mesh block proof {proof_sha256(proof)} != golden "
+                           f"{block_golden['block'][2]} (sharded trees "
+                           f"{ms.SHARDED_TREE_CALLS - calls})")
+    commit = ("commit_wires", "perm_columns", "quotient_commit")
+    log("mesh-block", shards=2, device=str(card), proof="equal to the golden",
+        prove_s=round(block["prove_s"], 3), unsharded_prove_s=round(ref["block"]["prove_s"], 3),
+        max_memory_allocated_bytes=block["peak"],
+        unsharded_max_memory_allocated_bytes=ref["block"]["peak"],
+        commit_phases_s={k: round(timings[k], 4) for k in commit},
+        unsharded_commit_phases_s={k: round(ref["block"]["phases"][k], 4) for k in commit})
+    log("mesh-block-phases", **{k: round(v, 4) for k, v in timings.items()})
+    # the user-tx batch over the proof axis of 2 shards
+    _, flow_golden = read_flow_golden(os.path.join(golden_dir, "user_tx_flow_standard.sha256"))
+    batch_timings = {}
+    t0 = time.perf_counter()
+    batch = prove_batch(stages.user_tx_circuit.data, stages.user_tx_witnesses,
+                        mesh=Mesh([card] * 2), timings=batch_timings)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    if batch != stages.user_tx_proofs or [proof_sha256(p) for p in batch] != flow_golden[:3]:
+        raise RuntimeError("the user-tx batch over a mesh differs from the flow's goldens")
+    log("mesh-user-tx", K=len(batch), shards=2, lanes=4, seconds=round(batch_s, 3),
+        proofs="equal to the goldens", **{f"{k}_s": round(v, 4) for k, v in batch_timings.items()})
+    # the mini recursive block over 2 shards
+    with open(os.path.join(golden_dir, "mini_block_test.sha256")) as f:
+        mini_golden = [ln.split()[0] for ln in f.read().splitlines()
+                       if ln and not ln.startswith(("#", "circuit_digest"))]
+    calls = ms.SHARDED_TREE_CALLS
+    t0 = time.perf_counter()
+    mini = run_mini_recursive_block(mesh=Mesh([card] * 2))
+    torch.cuda.synchronize()
+    mini_s = time.perf_counter() - t0
+    got = [proof_sha256(p) for p in mini["user_tx_proofs"] + mini["signature_proofs"]]
+    got.append(proof_sha256(mini["block_proof"].proof))
+    if got != mini_golden:
+        raise RuntimeError(f"the mini block over a mesh differs from the golden: {got}")
+    log("mesh-mini", shards=2, seconds=round(mini_s, 3), proofs="equal to the golden",
+        block_rows=mini["block_circuit"].data.common.n,
+        sharded_trees=ms.SHARDED_TREE_CALLS - calls)
+    # two distinct devices: the proof axis's two threads at once, and the
+    # commit mesh's exchanges between the card and the CPU
+    mixed = Mesh([card, "cpu"])
+    zk = stages.zkdsa_circuit.data
+    mixed_timings = {}
+    t0 = time.perf_counter()
+    got = prove_batch(zk, ref["zkdsa_pws"], mesh=mixed, timings=mixed_timings)
+    mixed_s = time.perf_counter() - t0
+    if got != ref["zkdsa_proofs"]:
+        raise RuntimeError("zkDSA proofs over the card and the CPU differ from one device's")
+    calls = ms.SHARDED_TREE_CALLS
+    with use_commit_mesh(mixed, min_lde=1):
+        proof = zk.prove(ref["zkdsa_pws"][0])
+    if proof != ref["zkdsa_proofs"][0] or ms.SHARDED_TREE_CALLS != calls + 3:
+        raise RuntimeError(f"a zkDSA proof committed over the card and the CPU differs from "
+                           f"one device's (sharded trees {ms.SHARDED_TREE_CALLS - calls})")
+    log("mesh-threads", devices=[str(dev) for dev in mixed.devices], threads=2,
+        K=len(got), lanes=4, seconds=round(mixed_s, 3), proofs="equal to one device's",
+        **{f"{k}_s": round(v, 4) for k, v in mixed_timings.items()},
+        commit_mesh="equal to one device's", commit_sharded_trees=3)
+    # the distributed prove step
+    for d in MESH_SHARDS:
+        hashed, evals, root = make_distributed_prove_step(Mesh([card] * d))(ref["states"],
+                                                                             ref["poly"])
+        bad = (mismatches(gather(hashed, 0, card), ref["hashed"])
+               + mismatches(gather(evals, -1, card), ref["evals"])
+               + mismatches(root, ref["root"]))
+        if bad:
+            raise RuntimeError(f"the prove step over {d} shards: {bad} mismatches")
+        log("mesh-step", shards=d, states=list(ref["states"].shape), poly=ref["poly"].shape[0],
+            mismatches=0)
+    if torch.cuda.device_count() > 1:  # distinct cards, where the machine has them
+        mesh = make_mesh()
+        parts = coset_lde_sharded(ref["coeffs"].to(mesh.devices[0]), 3, mesh)
+        levels = ms.build_merkle_levels_sharded([p.t() for p in parts], 4, mesh)
+        bad = mismatches(gather(parts, -1, card), ref["lde"]) + sum(
+            mismatches(gather(lv, -2, card), w[0]) for lv, w in zip(levels, ref[False]))
+        if bad:
+            raise RuntimeError(f"the sharded LDE and tree over {mesh.devices}: {bad} mismatches")
+        log("mesh-cards", devices=[str(dev) for dev in mesh.devices], lde_mismatches=0,
+            tree_mismatches=0)
+    return block
+
+
+def phase_mesh_processes(root, stages) -> None:
+    """Two processes (``tests/torch_distributed_worker.py``) join a gloo group
+    through ``init_distributed`` with both ranks' two shards on this card (a
+    2 x 2 mesh) and prove ``MESH_WORKER_K`` zkDSA witnesses at
+    ``standard_recursion_config`` with ``prove_batch(mesh=)`` (padded to 8);
+    each process's gathered proofs must equal the single-process proofs the
+    two made of their halves and this process's proofs of the same
+    witnesses.  Each process has its own timeout; a failure fails the run."""
+    import pickle
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="mesh_workers_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([root] + env.get("PYTHONPATH", "").split(os.pathsep))
+    worker = os.path.join(root, "tests", "torch_distributed_worker.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(rank), str(port), out_dir,
+         f"cuda:{torch.cuda.current_device()}", str(MESH_WORKER_K), "standard"],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"mesh worker {rank} exited {p.returncode}:\n{out[-4000:]}")
+    results = []
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"proofs.{rank}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    single = results[0]["single"] + results[1]["single"]
+    here = [stages.zkdsa_circuit.data.prove(pw)
+            for pw in zkdsa_witnesses(stages.zkdsa_circuit, MESH_WORKER_K)]
+    for rank, r in enumerate(results):
+        if r["gathered"] != single or single != here:
+            raise RuntimeError(f"rank {rank}'s gathered proofs differ from single-process ones")
+    shutil.rmtree(out_dir)
+    log("mesh-processes", processes=2, backend="gloo", mesh="2 x 2 on one card",
+        K=MESH_WORKER_K, lanes=8, proofs="every rank's equal to single-process ones",
+        seconds=round(seconds, 3),
+        workers=[out.strip().splitlines()[-1] for out in outs])
+
+
+WARMUP_CHILD = r"""
+import hashlib, json, sys, time
+t0 = time.perf_counter()
+import torch
+from intmax_zkp_core_tpu_torch import runtime
+from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig
+from intmax_zkp_core_tpu_torch.engine.serde import proof_to_json
+from intmax_zkp_core_tpu_torch.models.zkdsa import make_simple_signature_circuit
+from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut
+import_s = time.perf_counter() - t0
+warmup_s = runtime.warmup() if sys.argv[1] == "warm" else 0.0
+t1 = time.perf_counter()
+circuit = make_simple_signature_circuit(CircuitConfig.standard_recursion_config())
+t2 = time.perf_counter()
+proof = circuit.prove(HashOut.from_u64(42), HashOut.from_u64(0xABCDEF))
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+sha256 = hashlib.sha256(json.dumps(proof_to_json(proof), sort_keys=True).encode()).hexdigest()
+print(json.dumps({"import_s": import_s, "warmup_s": warmup_s, "build_s": t2 - t1,
+                  "prove_s": t3 - t2, "sha256": sha256}))
+"""
+
+
+def phase_warmup(root, golden_path, main_first_prove_s) -> None:
+    """Two fresh processes build the zkDSA circuit and prove it once (equal
+    to the golden), one after ``runtime.warmup()`` and one without it (the
+    control): their first prove seconds side by side, and this process's
+    first zkDSA proof's."""
+    with open(golden_path) as f:
+        golden = f.read().split()[0]
+    got = {}
+    for mode in ("warm", "cold"):
+        run = subprocess.run([sys.executable, "-c", WARMUP_CHILD, mode], capture_output=True,
+                             text=True, timeout=300, cwd=root,
+                             env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                                 [root] + os.environ.get("PYTHONPATH", "").split(os.pathsep))})
+        if run.returncode != 0:
+            raise RuntimeError(f"the {mode} process failed:\n{run.stderr[-4000:]}")
+        got[mode] = json.loads(run.stdout.strip().splitlines()[-1])
+        if got[mode]["sha256"] != golden:
+            raise RuntimeError(f"the {mode} process's zkDSA proof {got[mode]['sha256']} != golden")
+    warm, cold = got["warm"], got["cold"]
+    log("warmup", process="fresh", import_s=round(warm["import_s"], 3),
+        warmup_s=round(warm["warmup_s"], 3), build_s=round(warm["build_s"], 3),
+        first_prove_s=round(warm["prove_s"], 3),
+        control_build_s=round(cold["build_s"], 3), control_first_prove_s=round(cold["prove_s"], 3),
+        main_process_first_prove_s=round(main_first_prove_s, 3), proofs="equal to the golden")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log-rows", type=int, default=15,
@@ -2070,7 +2406,7 @@ def main() -> int:
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "intmax_zkp_core_tpu_torch", "golden", "zkdsa_standard.sha256")
     pc.reset_launch_counts()
-    phase_zkdsa(device, golden)
+    zkdsa_prove_s = phase_zkdsa(device, golden)
     chain, chain_timings = phase_chain(device, args.log_rows)
     main_counts = pc.launch_counts()  # read just after the main path
     if len(main_counts) != 8:
@@ -2134,6 +2470,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cache(cache_dir, written, flow_timings, block_timings, block_golden)
     shutil.rmtree(cache_dir)
+    # the mesh path (parallel/: the sharded commitments and the proof axis,
+    # shards on this card), its counts set to 0 just before it and read just
+    # after; the unsharded values it is held against are made before
+    mesh_ref = mesh_references(device, rng, stages, block_res, block_pw)
+    pc.reset_launch_counts()
+    phase_mesh(mesh_ref, stages, block_res, block_pw, block_golden, golden_dir)
+    mesh_counts = pc.launch_counts()
+    for name, count in mesh_counts.items():
+        if count <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the mesh path")
+    log("mesh-launches", path=mesh_counts)
+    del mesh_ref
+    torch.cuda.empty_cache()  # the processes below share the card
+    root = os.path.dirname(os.path.abspath(__file__))
+    phase_mesh_processes(root, stages)
+    phase_warmup(root, golden, zkdsa_prove_s)
     # comparisons only: after the counts were read
     phase_chain_witness(*chain[:3], *chain_timings)
     phase_chain_plain(*chain)
@@ -2177,7 +2529,8 @@ def main() -> int:
              "launches_per_block_proof": block_time[wiring][name]["launches"],
              "launches_ecdsa": ecdsa_counts[name],
              "ms_per_ecdsa_proof": ecdsa_time.get(name, {}).get("ms"),
-             "launches_per_ecdsa_proof": ecdsa_time.get(name, {}).get("launches", 0)})
+             "launches_per_ecdsa_proof": ecdsa_time.get(name, {}).get("launches", 0),
+             "launches_mesh": mesh_counts[name]})
     log("done", seconds=round(time.perf_counter() - t_start, 1), log_rows=args.log_rows)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,9 +14,13 @@ Layout:
   native/    host C++ (g++ at first use): scalar Poseidon, the witness fill
   engine/    proving system: circuit IR, prover, verifier, FRI, transcript
   models/    application layer: zkDSA, a Poseidon hash chain, the dense and
-             sparse Merkle trees and their in-circuit gadgets
-  bin/       the reference's SMT loops as entry points
+             sparse Merkle trees and their in-circuit gadgets, transactions,
+             recursion, the rollup's block production, ECDSA
+  parallel/  device meshes, the sharded NTT and Merkle commit, the proof
+             axis over devices and processes
+  bin/       the reference's binaries as entry points
   utils/     hex codecs, wrapped digest types
+  runtime.py the warm-up of a long-lived prover
 
 Device rule: an entry point takes ``device=None``, which means the CUDA
 device and raises when there is none; pass ``device="cpu"`` to run on the

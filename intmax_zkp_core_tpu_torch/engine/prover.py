@@ -11,7 +11,7 @@ calls.  Per phase: the witness fill runs K times on the host into one
 [K, W, n] array; every iNTT and coset LDE folds the proof axis into the rows
 (one ``ntt_cuda`` call over K * S rows); the Merkle levels of the K trees of
 a commitment are hashed one call per level
-(``ops/merkle.py::device_merkle_trees_batch``); the FRI layers of the K
+(``ops/merkle.py::build_merkle_levels_batch``); the FRI layers of the K
 proofs fold in lockstep.  The grind and the query rounds stay per proof, as
 each needs its own transcript's state.
 
@@ -36,7 +36,9 @@ witness: the arithmetic is exact mod p and the transcript deterministic.
 
 from __future__ import annotations
 
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,6 +55,10 @@ from ..ops import perm_quotient_cuda as pq
 from ..ops import poseidon as ps
 from ..ops import zinv_mul_cuda as zm
 from ..ops.perm_quotient_cuda import CHUNK, n_chunks  # noqa: F401  (the verifier reads them here)
+from ..parallel.merkle_sharded import build_merkle_levels_sharded, can_shard_tree
+# SHARD_COMMIT_MIN_LDE: importable here, at the JAX package's path
+from ..parallel.mesh import SHARD_COMMIT_MIN_LDE, check_axis, commit_mesh, gather  # noqa: F401
+from ..parallel.ntt_sharded import can_shard, coset_lde_sharded
 from .algebra import BatchAlgebra, ext_add, ext_mul
 from .challenger import Challenger
 from .circuit import CircuitData
@@ -222,6 +228,8 @@ def _extract_initial_openings(named_trees: dict, indices: list) -> list:
 # CircuitData for the same circuit reuses the device-resident tables.
 _KERNELS_CACHE: dict = {}
 _KERNELS_CACHE_MAX = 32
+# the proof axis fetches tables from one host thread per device
+_KERNELS_LOCK = threading.Lock()
 
 
 def get_circuit_kernels(pd, device):
@@ -242,7 +250,8 @@ def get_circuit_kernels(pd, device):
         repr(common.config),
         str(device),
     )
-    cached = _KERNELS_CACHE.get(cache_key)
+    with _KERNELS_LOCK:
+        cached = _KERNELS_CACHE.get(cache_key)
     if cached is not None:
         return cached
     cfg = common.config
@@ -338,11 +347,12 @@ def get_circuit_kernels(pd, device):
         "cs_lde_dev": cs_lde_c,
         "cs_coeffs_dev": gl.from_u64(pd.cs_coeffs, device),
     }
-    if len(_KERNELS_CACHE) >= _KERNELS_CACHE_MAX:
-        # FIFO eviction bounds device-table residency when many distinct
-        # circuits are built in one process
-        _KERNELS_CACHE.pop(next(iter(_KERNELS_CACHE)))
-    _KERNELS_CACHE[cache_key] = kernels
+    with _KERNELS_LOCK:
+        if len(_KERNELS_CACHE) >= _KERNELS_CACHE_MAX:
+            # FIFO eviction bounds device-table residency when many distinct
+            # circuits are built in one process
+            _KERNELS_CACHE.pop(next(iter(_KERNELS_CACHE)))
+        _KERNELS_CACHE[cache_key] = kernels
     return kernels
 
 
@@ -478,11 +488,36 @@ def _commit_batch(matrices, rate_bits: int, cap_height: int, from_coeffs: bool =
     are built in one pass, their levels stay on the device (each tree a
     ``DeviceMerkleTree`` of views) and only the caps are fetched.  The
     leaves are the columns of each proof's LDE: the builder gets the
-    transposed view."""
+    transposed view.
+
+    Inside ``parallel/mesh.py::use_commit_mesh``, an LDE of at least the
+    mesh's ``min_lde`` points is computed by the four-step NTT sharded over
+    the mesh where its length splits (``parallel/ntt_sharded.py``), and its
+    Merkle levels are hashed shard by shard where the tree splits
+    (``parallel/merkle_sharded.py``); both are then gathered onto the
+    proof's device, so everything after the commitment runs as without a
+    mesh.  The values are the same either way."""
     coeffs = matrices if from_coeffs else nt.intt(matrices)
-    lde = nt.coset_lde(coeffs, rate_bits)
-    trees = mk.device_merkle_trees_batch(lde.transpose(1, 2), cap_height, fused_sponge=fused_sponge)
-    return coeffs, lde, trees
+    K, S, n = coeffs.shape
+    lde_n = n << rate_bits
+    cm = commit_mesh()
+    d = cm.mesh.size if cm.mesh is not None and lde_n >= cm.min_lde else 1
+    lde_parts = None
+    if d > 1 and can_shard(lde_n, d):
+        lde_parts = [p.reshape(K, S, lde_n // d) for p in coset_lde_sharded(
+            coeffs.reshape(K * S, n), rate_bits, cm.mesh)]
+        lde = gather(lde_parts, -1, coeffs.device)
+    else:
+        lde = nt.coset_lde(coeffs, rate_bits)
+    if d > 1 and can_shard_tree(lde_n, d, cap_height):
+        leaves = (lde.transpose(1, 2) if lde_parts is None
+                  else [p.transpose(1, 2) for p in lde_parts])
+        levels = [gather(parts, -2, coeffs.device) for parts in build_merkle_levels_sharded(
+            leaves, cap_height, cm.mesh, fused_sponge)]
+    else:
+        levels = mk.build_merkle_levels_batch(lde.transpose(1, 2), cap_height,
+                                              fused_sponge=fused_sponge)
+    return coeffs, lde, mk.device_trees_from_levels(levels, cap_height)
 
 
 def _openings_dict(opens_zeta, opens_gzeta_z, n_cs: int, n_w: int, n_zpp: int) -> dict:
@@ -504,37 +539,112 @@ def prove_batch(
     device=None,
     fused_sponge: bool = False,
     timings: dict | None = None,
+    mesh=None,
+    axis_name: str = "d",
 ) -> list:
     """Prove K witnesses ``pws`` of one circuit on the circuit's device (or
     ``device``); returns K proofs bit-identical to K ``prove`` calls.
 
     ``fused_sponge`` and ``timings`` are those of ``prove``: the phases are
-    timed for the batch as a whole."""
+    timed for the batch as a whole.
+
+    ``mesh`` (``parallel/mesh.py::Mesh``) shards the proof axis instead:
+    ``_prove_batch_over_mesh``, which ``device`` does not apply to.
+    ``axis_name`` is the JAX package's keyword; a mesh's one axis is "d"."""
+    check_axis(axis_name)
+    if mesh is not None:
+        return _prove_batch_over_mesh(circuit_data, pws, mesh, fused_sponge, timings)
+    if len(pws) < 1:
+        raise ValueError("prove_batch wants at least one witness")
+    device = gl.resolve_device(device if device is not None else circuit_data.device)
+    timer = PhaseTimer(timings, device)
+    timer.phase("tables")  # per-circuit tables, digest-cached across proofs
+    kernels = get_circuit_kernels(circuit_data.prover, device)
+    timer.phase("witness")
+    filled = [_fill_one(circuit_data.prover, pw) for pw in pws]
+    return _prove_filled(circuit_data, kernels, filled, device, fused_sponge, timer)
+
+
+def _fill_one(pd, pw: PartialWitness) -> tuple:
+    """One witness on the host: (wires [W, n] uint64, public inputs, their
+    hash)."""
+    wires, public_inputs = compute_wire_matrix(pd, pw)
+    return wires, public_inputs, ps.hash_no_pad_s(public_inputs)
+
+
+def _prove_batch_over_mesh(circuit_data, pws, mesh, fused_sponge, timings) -> list:
+    """``prove_batch`` with the proof axis over ``mesh``'s d shards (as the
+    JAX package's ``prove_batch(mesh=)``).
+
+    K is padded to a multiple of d by repeating the last witness's wires,
+    public inputs and public-input hash; shard i proves lanes [i*K/d,
+    (i+1)*K/d) in one ``prove_batch`` on its device, and the padding lanes
+    are dropped from the result.  A process fills only its own shards'
+    witnesses.  Within a process, one host thread per distinct device runs
+    that device's shards in turn, so cards overlap.  Across processes
+    (``init_distributed``), ``torch.distributed.all_gather_object`` returns
+    every rank all K proofs, in order.  ``timings``, when given, receives
+    the seconds of the fill (``witness``), of this process's shards' proofs
+    (``prove``) and of the gather (``gather``)."""
+    d = mesh.size
+    k_real = len(pws)
+    if k_real < 1:
+        raise ValueError("prove_batch wants at least one witness")
+    per_shard = -(-k_real // d)
+    pd = circuit_data.prover
+    t0 = time.perf_counter()
+    local = len(mesh.devices)
+    first = mesh.process_index * local * per_shard  # this process's first lane
+    sources = {min(k, k_real - 1) for k in range(first, first + local * per_shard)}
+    filled = {k: _fill_one(pd, pws[k]) for k in sorted(sources)}
+    t1 = time.perf_counter()
+
+    by_device: dict = {}  # distinct device -> its shards, in order
+    for i, dev in enumerate(mesh.devices):
+        by_device.setdefault(dev, []).append(i)
+    results: list = [None] * local
+
+    def run(dev, shards):
+        kernels = get_circuit_kernels(pd, dev)
+        for i in shards:
+            lo = first + i * per_shard
+            lanes = [filled[min(k, k_real - 1)] for k in range(lo, lo + per_shard)]
+            results[i] = _prove_filled(circuit_data, kernels, lanes, dev, fused_sponge,
+                                       PhaseTimer(None, dev))
+
+    with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
+        futures = [pool.submit(run, dev, shards) for dev, shards in by_device.items()]
+        for f in futures:
+            f.result()
+    proofs = [p for shard in results for p in shard]
+    t2 = time.perf_counter()
+    if mesh.process_count > 1:
+        import torch.distributed as dist
+
+        gathered = [None] * mesh.process_count
+        dist.all_gather_object(gathered, proofs)
+        proofs = [p for rank in gathered for p in rank]
+    if timings is not None:
+        timings.update(witness=t1 - t0, prove=t2 - t1, gather=time.perf_counter() - t2)
+    return proofs[:k_real]
+
+
+def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device,
+                  fused_sponge: bool, timer: PhaseTimer) -> list:
+    """The device phases and the transcripts of ``prove_batch`` for K filled
+    witnesses (``_fill_one``'s triples) on ``device``."""
     pd = circuit_data.prover
     common = pd.common
     cfg = common.config
     n = common.n
     fri_cfg = cfg.fri
     lde_n = n * fri_cfg.blowup
-    R = cfg.num_routed_wires
     C = cfg.num_challenges
-    nch = n_chunks(R)
-    K = len(pws)
-    if K < 1:
-        raise ValueError("prove_batch wants at least one witness")
-    device = gl.resolve_device(device if device is not None else circuit_data.device)
-    timer = PhaseTimer(timings, device)
-    timer.phase("tables")  # per-circuit tables, digest-cached across proofs
-    kernels = get_circuit_kernels(pd, device)
-    timer.phase("witness")
-
-    # ---- 1. witness fill (host, per proof) ----
-    wires_all = np.empty((K, cfg.num_wires, n), dtype=np.uint64)
-    public_inputs_all, pi_hashes = [], []
-    for k, pw in enumerate(pws):
-        wires_all[k], public_inputs = compute_wire_matrix(pd, pw)
-        public_inputs_all.append(public_inputs)
-        pi_hashes.append(ps.hash_no_pad_s(public_inputs))
+    nch = n_chunks(cfg.num_routed_wires)
+    K = len(filled)
+    wires_all = np.stack([f[0] for f in filled])  # [K, W, n]
+    public_inputs_all = [f[1] for f in filled]
+    pi_hashes = [f[2] for f in filled]
     timer.phase("commit_wires")
 
     # ---- 2. commit wires ----

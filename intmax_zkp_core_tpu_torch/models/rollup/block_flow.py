@@ -10,7 +10,10 @@ transactions and a default one, proved as one batch; the proposal's world
 state; the second sender's signature of it and a default signature, proved
 as a second batch (``prove_batch``; the JAX flow's device rule, a batch on
 an accelerator and a loop of single proofs on the CPU, has nothing to
-choose here: ``prove`` is ``prove_batch`` at K = 1).  ``run_block_flow``
+choose here: ``prove`` is ``prove_batch`` at K = 1).  ``mesh`` shards each
+batch's proof axis over devices (``parallel/mesh.py``); without one, as in
+the JAX flow, every CUDA device takes a share where more than one is
+attached, and one device proves the batch otherwise.  ``run_block_flow``
 runs those stages (or takes them from the caller), then builds the block
 circuit, sets its witness, proves and verifies it.
 
@@ -36,6 +39,7 @@ from ...engine.config import CircuitConfig
 from ...engine.prover import PhaseTimer, prove_batch
 from ...engine.witness import PartialWitness
 from ...ops import goldilocks as gl
+from ...parallel.mesh import default_mesh
 from ...utils.hash_out import HashOut
 from ...utils.poseidon_host import two_to_one
 from ..merkle_tree.tree import get_merkle_proof
@@ -62,12 +66,16 @@ from .circuits import BlockDetail, BlockProductionProofWithPublicInputs, make_bl
 from .gadgets.deposit_block import DepositInfo, VariableIndex
 
 
-def _prove_group(circuit, pws: list, prove: bool, fused_sponge: bool, timings) -> list:
-    """One ``prove_batch`` call for the witnesses of one circuit, or, with
+def _prove_group(circuit, pws: list, prove: bool, fused_sponge: bool, timings, mesh) -> list:
+    """One ``prove_batch`` call for the witnesses of one circuit, its proof
+    axis over ``mesh`` (``None``: ``parallel/mesh.py::default_mesh``, every
+    CUDA device where more than one is attached, else one device), or, with
     ``prove=False``, each witness checked."""
     if not prove:
         return [CheckedPublicInputs(public_inputs=circuit.data.check_witness(pw)) for pw in pws]
-    return prove_batch(circuit.data, pws, fused_sponge=fused_sponge, timings=timings)
+    if mesh is None:
+        mesh = default_mesh(circuit.data.device, len(pws))
+    return prove_batch(circuit.data, pws, fused_sponge=fused_sponge, timings=timings, mesh=mesh)
 
 
 def constants_tag(constants: RollupConstants) -> str:
@@ -134,12 +142,14 @@ def prove_user_txs_and_signatures(
     timings: dict | None = None,
     prove: bool = True,
     cache_dir: str | None = None,
+    mesh=None,
 ) -> UserTxStages:
     """The flow's stages ``build_user_tx_circuit`` .. ``prove_signatures``
     (JAX ``models/rollup/block_flow.py::run_block_flow``), on ``device``
     (``None``: the CUDA device, raising without one).  ``prove=False``
     checks each witness (``check_witness``) instead of proving it.
     ``cache_dir``: the circuit cache's directory (``None``: build).
+    ``mesh``: the proof axis of both batches (``_prove_group``).
 
     ``fused_sponge`` goes to the prover.  ``timings``, when given, receives
     seconds per stage (``build_user_tx_circuit``, ``state_setup``,
@@ -295,7 +305,7 @@ def prove_user_txs_and_signatures(
     user_tx_witnesses = [pw1, pw2, pw3]
     user_tx_proofs = _prove_group(
         merge_and_purge_circuit, user_tx_witnesses, prove, fused_sponge,
-        phases.get("prove_user_txs"),
+        phases.get("prove_user_txs"), mesh,
     )
     stage.phase("proposal_state")
 
@@ -322,7 +332,7 @@ def prove_user_txs_and_signatures(
     signature_witnesses = [pw1, pw2]
     signature_proofs = _prove_group(
         zkdsa_circuit, signature_witnesses, prove, fused_sponge,
-        phases.get("prove_signatures"),
+        phases.get("prove_signatures"), mesh,
     )
     stage.phase("_end")  # closes the last stage
 
@@ -369,6 +379,7 @@ def run_block_flow(
     timings: dict | None = None,
     stages: UserTxStages | None = None,
     cache_dir: str | None = None,
+    mesh=None,
 ) -> BlockFlowResult:
     """The whole flow on ``device`` (``None``: the CUDA device, raising
     without one).  ``recursive=True`` (reference parity --
@@ -381,8 +392,9 @@ def run_block_flow(
     constants, config and ``prove``, whose stages are then not run again; the
     flow goes on changing its world-state tree, so one result serves one
     flow.  ``cache_dir``: the circuit cache's directory (``None``: build).
-    ``timings``, when given, receives seconds per stage (those of
-    ``prove_user_txs_and_signatures`` when it runs, then
+    ``mesh``: the proof axis of the user-tx and signature batches
+    (``_prove_group``).  ``timings``, when given, receives seconds per stage
+    (those of ``prove_user_txs_and_signatures`` when it runs, then
     ``build_block_circuit``, ``block_state``, and ``block_witness``,
     ``prove_block``, ``verify_block``, or ``check_block``) and, under
     ``prove_block_phases``, the block prove's seconds per phase."""
@@ -391,7 +403,7 @@ def run_block_flow(
     device = gl.resolve_device(device)
     if stages is None:
         stages = prove_user_txs_and_signatures(constants, config, device, timings=timings,
-                                               prove=prove, cache_dir=cache_dir)
+                                               prove=prove, cache_dir=cache_dir, mesh=mesh)
     stage = PhaseTimer(timings, device)
     block_phases = None
     if timings is not None and prove:

@@ -5,8 +5,10 @@ One sender, one diff (amounts conserved), signed approval, inner user-tx
 and signature proofs verified IN-CIRCUIT by the block circuit (reference
 ``rollup/circuits/mod.rs:450-489``).  Each group of inner proofs (the
 user transaction and its default, the signature and its default) is one
-``prove_batch`` call, bit-identical to a ``prove`` per witness.  Sharding
-over a mesh of devices is not carried into this package yet.
+``prove_batch`` call, bit-identical to a ``prove`` per witness.  With a
+mesh (``parallel/mesh.py``), each group's proof axis is sharded over it and
+the block proof's commitments are computed over it (``use_commit_mesh`` at
+every LDE length, the mini shapes included); the proofs are the same.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from ...config import LOG_MAX_N_BLOCKS, RollupConstants
 from ...engine.config import CircuitConfig, FriConfig
 from ...engine.prover import prove_batch
 from ...engine.witness import PartialWitness
+from ...parallel.mesh import use_commit_mesh
 from ...utils.hash_out import HashOut
 from ..merkle_tree.tree import get_merkle_proof
 from ..sparse_merkle_tree import LayeredLayeredSparseMerkleTree, SparseMerkleTree
@@ -60,12 +63,14 @@ def build_mini_circuits(constants=MINI, config=MINI_CFG, device=None):
     return user_circuit, sig_circuit, block_circuit
 
 
-def run_mini_recursive_block(constants=MINI, config=MINI_CFG, circuits=None, device=None):
+def run_mini_recursive_block(mesh=None, constants=MINI, config=MINI_CFG, circuits=None,
+                             device=None):
     """Build + prove the mini recursive block.  Returns a dict with the
     inner proofs, the block circuit, the ``BlockDetail`` and the verified
-    block proof.  ``circuits``: reuse a ``build_mini_circuits`` result
-    (built on the device the proofs are made on); otherwise they are built
-    on ``device``."""
+    block proof.  ``mesh``: shard the inner proof groups over the proof
+    axis and the block commitments over the intra-op axis.  ``circuits``:
+    reuse a ``build_mini_circuits`` result (built on the device the block
+    proof is made on); otherwise they are built on ``device``."""
     if circuits is None:
         circuits = build_mini_circuits(constants, config, device)
     user_circuit, sig_circuit, block_circuit = circuits
@@ -95,7 +100,8 @@ def run_mini_recursive_block(constants=MINI, config=MINI_CFG, circuits=None, dev
     user_circuit.targets.set_witness(
         pw2, type(account.address)(0), [], [], [], HashOut.ZERO, HashOut.ZERO
     )
-    user_tx_proof, default_user_tx_proof = prove_batch(user_circuit.data, [pw1, pw2])
+    user_tx_proof, default_user_tx_proof = prove_batch(
+        user_circuit.data, [pw1, pw2], mesh=mesh)
 
     prev_block_number = 1
     block_headers = [HashOut.ZERO]
@@ -123,7 +129,8 @@ def run_mini_recursive_block(constants=MINI, config=MINI_CFG, circuits=None, dev
     sig_circuit.targets.set_witness(pw1, account.private_key, proposal_root)
     pw2 = PartialWitness()
     sig_circuit.targets.set_witness(pw2, HashOut.ZERO, HashOut.ZERO)
-    signature_proof, default_signature_proof = prove_batch(sig_circuit.data, [pw1, pw2])
+    signature_proof, default_signature_proof = prove_batch(
+        sig_circuit.data, [pw1, pw2], mesh=mesh)
 
     block_number = prev_block_number + 1
     latest_account_tree = SparseMerkleTree(NodeDataMemory(), RootDataTmp())
@@ -150,9 +157,15 @@ def run_mini_recursive_block(constants=MINI, config=MINI_CFG, circuits=None, dev
         prev_block_header=prev_header,
     )
 
-    block_proof = block_circuit.set_witness_and_prove(
-        detail, default_user_tx_proof, default_signature_proof
-    )
+    if mesh is None:
+        block_proof = block_circuit.set_witness_and_prove(
+            detail, default_user_tx_proof, default_signature_proof
+        )
+    else:
+        with use_commit_mesh(mesh, min_lde=1):  # shard even the mini shapes
+            block_proof = block_circuit.set_witness_and_prove(
+                detail, default_user_tx_proof, default_signature_proof
+            )
     block_circuit.verify(block_proof)
     return {
         "user_tx_proofs": [user_tx_proof, default_user_tx_proof],

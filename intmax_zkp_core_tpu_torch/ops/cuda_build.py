@@ -19,6 +19,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -70,6 +71,9 @@ _ARGTYPES = {
 }
 
 _lib = None
+# the proof axis over several cards launches from one host thread per card:
+# the library is loaded (built) once, and no count is lost
+_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -171,16 +175,17 @@ def bind(lib, names=_ARGTYPES) -> None:
 def load():
     """The loaded library (built first if needed), with argtypes set."""
     global _lib
-    if _lib is not None:
-        return _lib
-    if _stale():
-        build()
-    lib = ctypes.CDLL(LIBRARY)
-    bind(lib)
-    lib.kernels_error_string.argtypes = [_CI]
-    lib.kernels_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _stale():
+            build()
+        lib = ctypes.CDLL(LIBRARY)
+        bind(lib)
+        lib.kernels_error_string.argtypes = [_CI]
+        lib.kernels_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
 
 
 def check(code: int, what: str) -> None:
@@ -197,7 +202,8 @@ def launch(name: str, symbol: str, device: torch.device, *args) -> None:
     fn = getattr(load(), symbol)
     with torch.cuda.device(device):
         code = fn(*args, torch.cuda.current_stream().cuda_stream)
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
     check(code, f"{symbol} launch")
 
 

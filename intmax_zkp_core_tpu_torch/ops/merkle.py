@@ -161,16 +161,23 @@ def build_merkle_trees_batch(leaf_data, cap_height: int, device=None,
     return trees_from_batch_levels(fetch_arrays(*levels_dev), cap_height)
 
 
+def device_trees_from_levels(levels_dev: list, cap_height: int) -> list:
+    """Device-resident levels of K trees ([K, m_i, 4], caps last) -> K
+    ``DeviceMerkleTree``s whose levels are views of them; only the caps are
+    fetched (one transfer)."""
+    caps_np = fetch_arrays(levels_dev[-1])[0]
+    return [DeviceMerkleTree(levels_dev=[lv[k] for lv in levels_dev], cap_height=cap_height,
+                             cap_np=caps_np[k])
+            for k in range(caps_np.shape[0])]
+
+
 def device_merkle_trees_batch(leaf_data, cap_height: int, device=None,
                               fused_sponge: bool = False) -> list:
     """Like ``build_merkle_trees_batch`` but the levels stay on the device
     and only the K caps are fetched (one transfer).  Returns K
     ``DeviceMerkleTree``s whose levels are views of the batched levels."""
     levels_dev = build_merkle_levels_batch(leaf_data, cap_height, device, fused_sponge)
-    caps_np = fetch_arrays(levels_dev[-1])[0]
-    return [DeviceMerkleTree(levels_dev=[lv[k] for lv in levels_dev], cap_height=cap_height,
-                             cap_np=caps_np[k])
-            for k in range(caps_np.shape[0])]
+    return device_trees_from_levels(levels_dev, cap_height)
 
 
 def device_merkle_tree(leaf_data, cap_height: int, device=None, fused_sponge: bool = False) -> DeviceMerkleTree:

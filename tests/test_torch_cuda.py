@@ -602,3 +602,109 @@ def test_ecdsa_16_proof_equals_the_cpu_port(card):
     proof = circuit.prove()
     assert _sha(proof) == lines[2].split()[0]
     circuit.verify(proof)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_sponge", [False, True])
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_lde_and_tree_at_the_block_shape(card, d, fused_sponge):
+    """The block circuit's wire commitment, [135, 2^16] to LDE 2^19, over d
+    shards on one card: the LDE equals ``coset_lde`` and every level equals
+    ``build_merkle_levels_batch``; each shard's column and row NTTs are one
+    launch each (2d against the unsharded LDE's 2)."""
+    import importlib
+
+    from intmax_zkp_core_tpu_torch.ops import merkle as mk
+    from intmax_zkp_core_tpu_torch.ops import ntt as nt
+    from intmax_zkp_core_tpu_torch.parallel.mesh import Mesh, gather
+
+    tns = importlib.import_module("intmax_zkp_core_tpu_torch.parallel.ntt_sharded")
+    tms = importlib.import_module("intmax_zkp_core_tpu_torch.parallel.merkle_sharded")
+    mesh = Mesh([card] * d)
+    coeffs = _rand(120 + d, (135, 1 << 16), card)
+    before = pc.launch_counts()["ntt_cuda"]
+    parts = tns.coset_lde_sharded(coeffs, 3, mesh)
+    assert pc.launch_counts()["ntt_cuda"] == before + 2 * d
+    lde = nt.coset_lde(coeffs, 3)
+    assert torch.equal(gather(parts, -1, card), lde)
+    kernel = "hash_no_pad_cuda" if fused_sponge else "permute_cuda"
+    before = pc.launch_counts()[kernel]
+    levels = tms.build_merkle_levels_sharded([p.t() for p in parts], 4, mesh,
+                                             fused_sponge=fused_sponge)
+    assert pc.launch_counts()[kernel] > before
+    want = mk.build_merkle_levels_batch(lde.t()[None], 4, fused_sponge=fused_sponge)
+    assert len(levels) == len(want)
+    for lg, lw in zip(levels, want):
+        assert torch.equal(gather(lg, -2, card), lw[0])
+
+
+@pytest.mark.cuda
+def test_mini_recursive_block_over_a_two_shard_mesh(card):
+    """``run_mini_recursive_block`` with both shards of its mesh on the card:
+    the inner groups over the proof axis and the block proof's commitments
+    over the commit mesh give the JAX package's proofs
+    (``golden/mini_block_test.sha256``)."""
+    from intmax_zkp_core_tpu_torch.models.rollup.mini_block import run_mini_recursive_block
+    from intmax_zkp_core_tpu_torch.parallel import merkle_sharded
+    from intmax_zkp_core_tpu_torch.parallel.mesh import Mesh
+
+    lines = _golden_lines("mini_block_test.sha256")
+    before = merkle_sharded.SHARDED_TREE_CALLS
+    r = run_mini_recursive_block(mesh=Mesh([card] * 2))
+    assert merkle_sharded.SHARDED_TREE_CALLS >= before + 3
+    inner = r["user_tx_proofs"] + r["signature_proofs"] + [r["block_proof"].proof]
+    assert [_sha(p) for p in inner] == [ln.split()[0] for ln in lines[1:6]]
+
+
+@pytest.mark.cuda
+def test_prove_batch_over_a_mesh_on_the_card(user_tx_flow):
+    """The K = 3 user-tx batch over two shards of one card (padded to 4, one
+    lane dropped) equals the flow's proofs."""
+    from intmax_zkp_core_tpu_torch.engine.batch_prover import prove_batch
+    from intmax_zkp_core_tpu_torch.parallel.mesh import Mesh
+
+    data, pws = user_tx_flow.user_tx_circuit.data, user_tx_flow.user_tx_witnesses
+    mesh = Mesh([torch.device("cuda", torch.cuda.current_device())] * 2)
+    assert prove_batch(data, pws, mesh=mesh) == user_tx_flow.user_tx_proofs
+
+
+@pytest.mark.cuda
+def test_mesh_over_the_card_and_the_cpu(card):
+    """A mesh of two distinct devices, the card and the CPU: the proof axis
+    proves on both at once (one host thread each; K = 3 padded to 4 lanes)
+    and the commit mesh's exchanges copy between them; the zkDSA proofs
+    equal one device's."""
+    from intmax_zkp_core_tpu_torch.engine.batch_prover import prove_batch
+    from intmax_zkp_core_tpu_torch.engine.config import CircuitConfig
+    from intmax_zkp_core_tpu_torch.engine.witness import PartialWitness
+    from intmax_zkp_core_tpu_torch.models.zkdsa import make_simple_signature_circuit
+    from intmax_zkp_core_tpu_torch.parallel import merkle_sharded
+    from intmax_zkp_core_tpu_torch.parallel.mesh import Mesh, use_commit_mesh
+    from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut
+
+    circ = make_simple_signature_circuit(CircuitConfig.standard_recursion_config())
+    pws = []
+    for i in range(3):
+        pw = PartialWitness()
+        circ.targets.set_witness(pw, HashOut.from_u64(101 + i), HashOut.from_u64(7 + i))
+        pws.append(pw)
+    single = [circ.data.prove(pw) for pw in pws]
+    mesh = Mesh([card, "cpu"])
+    assert prove_batch(circ.data, pws, mesh=mesh) == single
+    before = merkle_sharded.SHARDED_TREE_CALLS
+    with use_commit_mesh(mesh, min_lde=1):
+        assert circ.data.prove(pws[0]) == single[0]
+    assert merkle_sharded.SHARDED_TREE_CALLS == before + 3
+
+
+@pytest.mark.cuda
+def test_warmup_launches_each_kernel_once(card):
+    from intmax_zkp_core_tpu_torch import runtime
+    from intmax_zkp_core_tpu_torch.ops import cuda_build as cb
+
+    before = pc.launch_counts()
+    seconds = runtime.warmup(max_log_rows=14)
+    assert seconds > 0
+    launched = {k: n - before[k] for k, n in pc.launch_counts().items()}
+    assert launched == {k: {"perm_columns_cuda": pcol.LAUNCHES_PER_CALL, "ntt_cuda": 2}.get(k, 1)
+                        for k in cb.LAUNCHES}
