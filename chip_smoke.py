@@ -89,9 +89,21 @@ over ``make_mesh()`` (``[mesh-cards]``).  Every kernel must be launched on
 it (``[mesh-launches]``).  Then two processes
 (``tests/torch_distributed_worker.py``, gloo, both ranks on this card, a 2 x 2
 mesh) prove five zkDSA witnesses over the proof axis, each rank's gathered
-proofs equal to single-process ones (``[mesh-processes]``), and a fresh
-process runs ``runtime.warmup()`` before its first zkDSA proof
-(``[warmup]``).
+proofs equal to single-process ones (``[mesh-processes]``); in the same
+processes the commit mesh spans the two (``[mesh-commit-processes]``, the
+exchanges through host memory): the block's wire commitment at 2 x 1 and 2 x
+2 shards in both wirings equal to the unsharded one on each rank, each
+rank's kernels launched for its own shards, its exchange bytes and seconds;
+then each process proves the block flow from the ``[cache]`` phase's
+circuits under a commit mesh over the two, both block proofs equal to the
+golden.  A fresh process runs ``runtime.warmup()`` before its first zkDSA
+proof (``[warmup]``).
+
+The kernels' domain: ``ntt_cuda`` at [1, 2^23], [2, 2^24] (the outer
+four-step) and [70,000, 2^12] (rows over several launches), the Poseidon
+gate quotient at 5 and 9 challenges, and K3, K4, K5 and K7 at 65,536 proofs
+(``phase_proof_chunks``) are held against their plain versions with the
+other comparisons.
 
 Every kernel is held against its plain version at the shapes of each path
 (the chain's 2^N rows, the SMT circuit's 2^12, LDE 8x, the K = 3 user-tx
@@ -436,18 +448,27 @@ def ntt_bound(B: int, n: int, inverse: bool) -> dict:
     twice; each local transform of 2^M points spends, per 8 points, 0, 0, 2
     or 5 products in a first pass of 0 to 3 stages and 12 in each later pass
     (7 twiddles, 5 inside the stages); the four-step adds its twiddle per
-    point, the one-launch inverse its scale."""
+    point, the one-launch inverse its scale; above 2^22 the outer four-step
+    moves the rows four times (three local passes and the transposed copy)
+    with two four-step twiddles per point."""
     from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
 
     log_n = n.bit_length() - 1
     mads = B * (n // 2) * log_n * MUL
-    halves = [log_n] if log_n <= nc.LOCAL_LOG_MAX else [log_n // 2, log_n - log_n // 2]
+    if log_n <= nc.LOCAL_LOG_MAX:
+        halves = [log_n]
+    elif log_n <= 2 * nc.LOCAL_LOG_MAX:
+        halves = [log_n // 2, log_n - log_n // 2]
+    else:  # the outer four-step: its columns, then the rows' four-step and a transposed copy
+        rows = log_n - nc.LOCAL_LOG_MAX
+        halves = [nc.LOCAL_LOG_MAX, rows // 2, rows - rows // 2]
     per_8 = 0
     for log_len in halves:
         first, *later = nc.passes_for(log_len)
         per_8 += (0, 0, 2, 5)[first] + 12 * len(later)
-    per_8 += 8 if len(halves) == 2 or inverse else 0
-    return bound(2 * B * n * 8, mads, B * n * per_8 // 8 * MUL, 2 * len(halves) * B * n * 8)
+    per_8 += 8 * (len(halves) - 1) + (8 if inverse and len(halves) == 1 else 0)
+    passes = len(halves) + (len(halves) == 3)
+    return bound(2 * B * n * 8, mads, B * n * per_8 // 8 * MUL, 2 * passes * B * n * 8)
 
 
 def proof_sha256(proof) -> str:
@@ -881,19 +902,80 @@ def ntt_chain_shapes(log_rows):
             "ntt_cuda_intt_quotient": (2, L, True), "ntt_cuda_quotient": (16, L, False)}
 
 
+# ntt_cuda beyond one four-step: (rows, log2 length); 2^23 and 2^24 take the
+# outer four-step, 70,000 rows two launches of each pass
+NTT_DOMAIN_SHAPES = ((1, 23), (2, 24), (70_000, 12))
+PROOF_PERIOD = 7  # distinct proofs tiled over K = 65,536 (65,535 is no multiple of 7)
+
+
+def phase_proof_chunks(device, rng) -> dict:
+    """K3, K4, K5 and K7 at K = 65,536 proofs, one more than the grid's
+    second and third axes take (their wrappers split K over launches), on 8
+    points: ``PROOF_PERIOD`` distinct proofs tiled over K, the plain version
+    run on the distinct ones (it loops over proofs).  Every output must
+    equal the plain version's of its proof."""
+    from intmax_zkp_core_tpu_torch.ops import cuda_build as cb
+    from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
+    from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
+    from intmax_zkp_core_tpu_torch.ops import perm_columns_cuda as pcol
+    from intmax_zkp_core_tpu_torch.ops import perm_quotient_cuda as pq
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
+
+    K, L, R, C = cb.MAX_GRID_YZ + 1, 8, 9, 2
+    idx = torch.arange(K, device=device) % PROOF_PERIOD
+    err = {}
+
+    def rand(*shape):
+        return rand_field(rng, (PROOF_PERIOD,) + shape, device)
+
+    def hold(name, cuda_fn, plain_fn, per_proof, shared):
+        before = pc.launch_counts()[name]
+        got = cuda_fn(*[t[idx] for t in per_proof], *shared)
+        launches = pc.launch_counts()[name] - before
+        want = plain_fn(*per_proof, *shared)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        bad = sum(mismatches(g, w[idx]) for g, w in zip(got, want))
+        err[name] = max(max_abs_err(g, w[idx]) for g, w in zip(got, want))
+        if bad or err[name]:
+            raise RuntimeError(f"{name} at K = {K}: {bad} mismatches")
+        log("kernels", kernel=name, K=K, L=L, distinct_proofs=PROOF_PERIOD, launches=launches,
+            mismatches=0)
+
+    xs = rand_field(rng, (L,), device)
+    hold("fri_initial_cuda", lambda c1, c2, *r: fi.fri_initial_cuda(c1, c2, xs, *r),
+         lambda c1, c2, *r: fi.fri_initial_plain(c1, c2, xs, *r),
+         [rand(L, 2), rand(L, 2)] + [rand(2) for _ in range(4)], [])
+    sel = rand_field(rng, (L,), device)
+    hold("poseidon_gate_quotient_cuda",
+         lambda w, *r: gqc.poseidon_gate_quotient_cuda(w, sel, *r),
+         lambda w, *r: gqc.poseidon_gate_quotient_plain(w, sel, *r),
+         [rand(135, L), rand(C), rand(C, L), rand(C)], [])
+    wires = rand(R, L)
+    hold("perm_columns_cuda", pcol.perm_columns_cuda, pcol.perm_columns_plain,
+         [wires, rand(C), rand(C)], [rand_field(rng, (R, L), device) for _ in range(2)])
+    hold("perm_quotient_cuda", pq.perm_quotient_cuda, pq.perm_quotient_plain,
+         [wires, rand(C, L), rand(C, pq.n_chunks(R) - 1, L)] + [rand(C) for _ in range(3)],
+         [rand_field(rng, (R, L), device), rand_field(rng, (L,), device),
+          rand_field(rng, (L,), device), rand_field(rng, (R,), device), 8])
+    return err
+
+
 def phase_gate_ntt_kernels(device, rng, paths):
     """K4 and K2 against their plain versions on the card.  K4 at K in {1, 3},
     C = 2, 64 / 2^14 / each main path's (``paths``: name -> log2 rows) LDE
     points, the wire matrix with its 135 rows at K = 1 and with two more at
-    K = 3; K2 at every length 2^0 .. 2^22 at B = 1 and at every (B, length)
-    of each main path's proof (``ntt_chain_shapes``), both directions, and the
-    round trip through the public entry points.  Then both on edge-lane
-    inputs (0, 1, 2^32 - 1, 2^32, 2^63, p - 1): K4 at C = 1 .. 4 over a
-    number of points no block divides, K2 at every shape of each main path's
-    proof; every output lane must be below p."""
+    K = 3; K2 at every length 2^0 .. 2^22 at B = 1, at every (B, length)
+    of each main path's proof (``ntt_chain_shapes``) and at
+    ``NTT_DOMAIN_SHAPES`` (the outer four-step, rows over several launches),
+    both directions, its launches those of ``ntt_cuda.plan``, and the round
+    trip through the public entry points.  Then both on edge-lane inputs (0,
+    1, 2^32 - 1, 2^32, 2^63, p - 1): K4 at C = 1 .. 5 and 9 (one launch per
+    four challenges) over a number of points no block divides, K2 at every
+    shape of each main path's proof; every output lane must be below p."""
     from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
     from intmax_zkp_core_tpu_torch.ops import ntt as nt
     from intmax_zkp_core_tpu_torch.ops import ntt_cuda as nc
+    from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc
 
     names = ("poseidon_gate_quotient_cuda", "ntt_cuda")
     worst, err = dict.fromkeys(names, 0), dict.fromkeys(names, 0.0)
@@ -914,7 +996,7 @@ def phase_gate_ntt_kernels(device, rng, paths):
                  gqc.poseidon_gate_quotient_plain(*args), plain="poseidon_gate_quotient_plain",
                  K=K, C=C, L=L, wire_rows=args[0].shape[1], **path_tag(path))
             del args
-    for C in (1, 2, 3, 4):
+    for C in (1, 2, 3, 4, 5, 9):  # above four: one launch per group of four challenges
         L = (1 << 14) + 100
         args = [edge_field(rng, (2, 135, L), device), edge_field(rng, (L,), device),
                 edge_field(rng, (2, C), device), edge_field(rng, (2, C, L), device),
@@ -925,17 +1007,25 @@ def phase_gate_ntt_kernels(device, rng, paths):
         del args
     # K2's layout depends on the batch as well as the length (``group_log``),
     # so every (B, length) of each path is held in both directions
-    shapes = [(1, 1 << log_n, None) for log_n in range(nc.MAX_LOG_N + 1)]
+    shapes = [(1, 1 << log_n, None) for log_n in range(2 * nc.LOCAL_LOG_MAX + 1)]
     for path, log_rows in paths.items():
         shapes += [(B, n, path) for B, n in dict.fromkeys(
             (B, n) for B, n, _ in ntt_chain_shapes(log_rows).values())]
-    round_trip = {1 << k for k in (1, 11, 12, nc.MAX_LOG_N)}
+    shapes += [(B, 1 << log_n, None) for B, log_n in NTT_DOMAIN_SHAPES]
+    round_trip = {1 << k for k in (1, 11, 12, 2 * nc.LOCAL_LOG_MAX, 23)}
     round_trip |= {1 << (k + d) for k in paths.values() for d in (0, 3)}
     for B, n, path in shapes:
         x = rand_field(rng, (B, n), device)
         for inverse in (False, True):
-            hold("ntt_cuda", [nc.ntt_cuda(x, inverse)], [nc.ntt_plain(x, inverse)],
-                 plain="ops.ntt._ntt_impl", B=B, n=n, inverse=inverse, **path_tag(path))
+            before = pc.launch_counts()["ntt_cuda"]
+            got = nc.ntt_cuda(x, inverse)
+            launches = pc.launch_counts()["ntt_cuda"] - before
+            if launches != nc.launches_for(n, B):
+                raise RuntimeError(f"ntt_cuda on [{B}, {n}]: {launches} launches, not "
+                                   f"{nc.launches_for(n, B)}")
+            hold("ntt_cuda", [got], [nc.ntt_plain(x, inverse)], plain="ops.ntt._ntt_impl",
+                 B=B, n=n, inverse=inverse, launches=launches, **path_tag(path))
+            del got
         if n in round_trip:
             back = nt.intt(nt.ntt(x))
             hold("ntt_cuda", [back], [x], against="intt(ntt(x)) == x", B=B, n=n,
@@ -949,11 +1039,12 @@ def phase_gate_ntt_kernels(device, rng, paths):
                  path=path)
             del x
     try:
-        nc.ntt_cuda(torch.zeros((1, 2 << nc.MAX_LOG_N), dtype=torch.int64, device=device))
+        nc.ntt_cuda(torch.empty((1, 2 << nc.TWO_ADICITY), dtype=torch.int64, device="meta"))
     except ValueError:
-        log("kernels", kernel="ntt_cuda", n=2 << nc.MAX_LOG_N, above_the_limit="raises")
+        log("kernels", kernel="ntt_cuda", n=2 << nc.TWO_ADICITY,
+            beyond_the_fields_roots_of_unity="raises")
     else:
-        raise RuntimeError("ntt_cuda took a length above its stated limit")
+        raise RuntimeError("ntt_cuda took a length the field has no roots of unity for")
     torch.cuda.synchronize()
     if any(worst.values()) or any(err.values()):
         raise RuntimeError(f"kernel disagrees with its plain version: {worst} {err}")
@@ -982,11 +1073,20 @@ def phase_gate_ntt_timings(device, rng, log_rows):
     for name, (rows, length, inverse) in ntt_chain_shapes(log_rows).items():
         x = rand_field(rng, (rows, length), device)
         out[name] = {
-            "shape": [rows, length], "inverse": inverse, "launches_per_call": nc.launches_for(length),
+            "shape": [rows, length], "inverse": inverse,
+            "launches_per_call": nc.launches_for(length, rows),
             "ms": time_ms(lambda: nc.ntt_cuda(x, inverse), 10, flush),
             "plain_ms": time_ms(lambda: nc.ntt_plain(x, inverse), 2, flush),
             **ntt_bound(rows, length, inverse)}
         log("timing", kernel="ntt_cuda", name=name, **out[name])
+        del x
+    for B, log_n in NTT_DOMAIN_SHAPES:  # beyond one four-step: recorded, not in the kernels line
+        x = rand_field(rng, (B, 1 << log_n), device)
+        log("timing", kernel="ntt_cuda", name="ntt_cuda_domain", shape=[B, 1 << log_n],
+            inverse=False, launches_per_call=nc.launches_for(1 << log_n, B),
+            ms=time_ms(lambda: nc.ntt_cuda(x, False), 5, flush),
+            plain_ms=time_ms(lambda: nc.ntt_plain(x, False), 1, flush),
+            **ntt_bound(B, 1 << log_n, False))
         del x
     del flush
     return out
@@ -2244,14 +2344,28 @@ def phase_mesh(ref, stages, block_res, block_pw, block_golden, golden_dir) -> di
     return block
 
 
-def phase_mesh_processes(root, stages) -> None:
+def phase_mesh_processes(root, stages, cache_dir, golden_dir, block_golden, mesh_block) -> None:
     """Two processes (``tests/torch_distributed_worker.py``) join a gloo group
     through ``init_distributed`` with both ranks' two shards on this card (a
-    2 x 2 mesh) and prove ``MESH_WORKER_K`` zkDSA witnesses at
-    ``standard_recursion_config`` with ``prove_batch(mesh=)`` (padded to 8);
-    each process's gathered proofs must equal the single-process proofs the
-    two made of their halves and this process's proofs of the same
-    witnesses.  Each process has its own timeout; a failure fails the run."""
+    2 x 2 mesh).  ``[mesh-processes]``: they prove ``MESH_WORKER_K`` zkDSA
+    witnesses at ``standard_recursion_config`` with ``prove_batch(mesh=)``
+    (padded to 8); each process's gathered proofs must equal the
+    single-process proofs the two made of their halves and this process's
+    proofs of the same witnesses.  ``[mesh-commit-processes]``: the commit
+    mesh across the two (2 x 1 and 2 x 2 shards; the exchanges staged through
+    host memory, since NCCL refuses two ranks on one card): the block's wire
+    commitment ([135, 2^16] -> LDE 2^19, cap height 4) in both wirings equal
+    to the unsharded one on each rank, each rank's NTT launches 2 per local
+    shard and its Poseidon launches the unsharded tree's times its local
+    shards, its exchange bytes and seconds; the zkDSA witnesses proved under
+    the commit mesh equal to the others; then ``run_block_flow(prove=True,
+    recursive=True)`` on the circuits in ``cache_dir`` under the 2 x 1 commit
+    mesh in each process, and the batch proof of ``bin/block_circuit.py``
+    over it: both ranks' proofs equal to the goldens, each rank's prove_s,
+    commit phases and peak memory beside ``[mesh-block]``'s (``mesh_block``);
+    then ``run_mini_recursive_block`` with the 2 x 1 mesh (its proof axis and
+    its commitments across the processes), equal to its golden.  Each
+    process has its own timeout; a failure fails the run."""
     import pickle
     import socket
 
@@ -2266,7 +2380,7 @@ def phase_mesh_processes(root, stages) -> None:
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, worker, str(rank), str(port), out_dir,
-         f"cuda:{torch.cuda.current_device()}", str(MESH_WORKER_K), "standard"],
+         f"cuda:{torch.cuda.current_device()}", str(MESH_WORKER_K), "standard", cache_dir],
         env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(2)]
     outs = []
@@ -2286,17 +2400,74 @@ def phase_mesh_processes(root, stages) -> None:
     for rank in range(2):
         with open(os.path.join(out_dir, f"proofs.{rank}.pkl"), "rb") as f:
             results.append(pickle.load(f))
+    shutil.rmtree(out_dir)
     single = results[0]["single"] + results[1]["single"]
     here = [stages.zkdsa_circuit.data.prove(pw)
             for pw in zkdsa_witnesses(stages.zkdsa_circuit, MESH_WORKER_K)]
     for rank, r in enumerate(results):
         if r["gathered"] != single or single != here:
             raise RuntimeError(f"rank {rank}'s gathered proofs differ from single-process ones")
-    shutil.rmtree(out_dir)
     log("mesh-processes", processes=2, backend="gloo", mesh="2 x 2 on one card",
         K=MESH_WORKER_K, lanes=8, proofs="every rank's equal to single-process ones",
         seconds=round(seconds, 3),
         workers=[out.strip().splitlines()[-1] for out in outs])
+    hashes = ("permute_cuda", "hash_no_pad_cuda")
+    for shards, local in (("2x1", 1), ("2x2", 2)):
+        launched = set()
+        for fused in (False, True):
+            for rank, r in enumerate(results):
+                c = r["commit"][shards, fused]
+                want = {"ntt_cuda": 2 * local, **{k: local * c["launches_unsharded"][k]
+                                                   for k in hashes
+                                                   if k in c["launches_unsharded"]}}
+                if c["launches"] != want or c["route"] != "gloo":
+                    raise RuntimeError(f"rank {rank}'s commitment over {shards}: launches "
+                                       f"{c['launches']}, not {want} (route {c['route']})")
+                launched |= set(c["launches"])
+                log("mesh-commit-processes", rank=rank, shards=shards, route=c["route"],
+                    lde="1 << 19 of 135 rows", wiring="fused" if fused else "chained",
+                    mismatches=0, launches=c["launches"],
+                    launches_unsharded=c["launches_unsharded"], seconds=round(c["seconds"], 4),
+                    unsharded_seconds=round(c["unsharded_seconds"], 4),
+                    exchange_collectives=c["exchange_collectives"],
+                    exchange_bytes=c["exchange_bytes"],
+                    exchange_seconds=round(c["exchange_seconds"], 4))
+        if launched != {"ntt_cuda", *hashes}:
+            raise RuntimeError(f"the commitments over {shards} launched only {launched}")
+        for rank, r in enumerate(results):
+            if r["commit"][shards, "zkdsa"] != here:
+                raise RuntimeError(f"rank {rank}'s zkDSA proofs under the commit mesh over "
+                                   f"{shards} differ from single-process ones")
+    commit = ("commit_wires", "perm_columns", "quotient_commit")
+    with open(os.path.join(golden_dir, "mini_block_test.sha256")) as f:
+        mini_golden = [ln.split()[0] for ln in f.read().splitlines()
+                       if ln and not ln.startswith(("#", "circuit_digest"))]
+    for rank, r in enumerate(results):
+        flow = r["flow"]
+        if flow["sha256"] != block_golden["block"][2] or flow["sharded_trees"] != 3:
+            raise RuntimeError(f"rank {rank}'s block proof under the commit mesh {flow['sha256']} "
+                               f"!= golden {block_golden['block'][2]} (sharded trees "
+                               f"{flow['sharded_trees']})")
+        if flow["batch"] != {"sha256": block_golden["batch"][2], "sharded_trees": 3}:
+            raise RuntimeError(f"rank {rank}'s batch proof under the commit mesh: {flow['batch']}, "
+                               f"golden {block_golden['batch'][2]}")
+        if flow["mini"]["sha256"] != mini_golden:
+            raise RuntimeError(f"rank {rank}'s mini block over the two processes differs from "
+                               f"the golden: {flow['mini']['sha256']}")
+        log("mesh-commit-processes", rank=rank, flow="run_block_flow from the circuit cache",
+            shards="2x1", block_proof="equal to the golden", batch_proof="equal to the golden",
+            mini_block="equal to the golden", mini_block_s=round(flow["mini"]["seconds"], 3),
+            flow_s=round(flow["flow_s"], 3),
+            prove_s=round(flow["prove_s"], 3), one_process_prove_s=round(mesh_block["prove_s"], 3),
+            commit_phases_s={k: round(flow["phases"][k], 4) for k in commit},
+            one_process_commit_phases_s={k: round(mesh_block["phases"][k], 4) for k in commit},
+            max_memory_allocated_bytes=flow["peak"],
+            one_process_max_memory_allocated_bytes=mesh_block["peak"],
+            exchange_collectives=flow["exchange_collectives"],
+            exchange_bytes=flow["exchange_bytes"],
+            exchange_seconds=round(flow["exchange_seconds"], 4))
+    log("mesh-commit-processes", processes=2, backend="gloo", seconds=round(seconds, 3),
+        proofs="both ranks' equal to the goldens")
 
 
 WARMUP_CHILD = r"""
@@ -2398,6 +2569,8 @@ def main() -> int:
         err[name] = max(err[name], e)
     for name, e in phase_user_tx_kernels(device, rng, ECDSA_LOG_ROWS, 1, path="ecdsa").items():
         err[name] = max(err[name], e)
+    for name, e in phase_proof_chunks(device, rng).items():
+        err[name] = max(err[name], e)
     timing = phase_timings(device, rng)
     timing.update(phase_perm_timings(device, rng, args.log_rows))
     timing.update(phase_gate_ntt_timings(device, rng, args.log_rows))
@@ -2469,13 +2642,12 @@ def main() -> int:
     written = fill_cache(cache_dir, stages, block_res)
     torch.cuda.empty_cache()
     phase_cache(cache_dir, written, flow_timings, block_timings, block_golden)
-    shutil.rmtree(cache_dir)
     # the mesh path (parallel/: the sharded commitments and the proof axis,
     # shards on this card), its counts set to 0 just before it and read just
     # after; the unsharded values it is held against are made before
     mesh_ref = mesh_references(device, rng, stages, block_res, block_pw)
     pc.reset_launch_counts()
-    phase_mesh(mesh_ref, stages, block_res, block_pw, block_golden, golden_dir)
+    mesh_block = phase_mesh(mesh_ref, stages, block_res, block_pw, block_golden, golden_dir)
     mesh_counts = pc.launch_counts()
     for name, count in mesh_counts.items():
         if count <= 0:
@@ -2484,7 +2656,8 @@ def main() -> int:
     del mesh_ref
     torch.cuda.empty_cache()  # the processes below share the card
     root = os.path.dirname(os.path.abspath(__file__))
-    phase_mesh_processes(root, stages)
+    phase_mesh_processes(root, stages, cache_dir, golden_dir, block_golden, mesh_block)
+    shutil.rmtree(cache_dir)
     phase_warmup(root, golden, zkdsa_prove_s)
     # comparisons only: after the counts were read
     phase_chain_witness(*chain[:3], *chain_timings)

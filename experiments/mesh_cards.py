@@ -17,7 +17,17 @@ Builds the kernel library, then, over ``make_mesh()`` (every card):
   over the cards (``prove_batch(mesh=)``) and through ``prove_many`` with no
   mesh (the default, every card), against one-card proofs;
 * a zkDSA proof whose commitments run over the cards (``use_commit_mesh`` at
-  threshold 1), against the one-card proof.
+  threshold 1), against the one-card proof;
+* one process per card, as PyTorch deploys several cards, over 2 cards and
+  over all of them (``[cards-processes]``): each process sees only its card
+  (``CUDA_VISIBLE_DEVICES``) and joins ``init_distributed``; the commit mesh
+  across the processes takes the NCCL route (``parallel/mesh.py::
+  exchange_route``).  Each process holds the block's wire commitment over
+  the mesh against its own unsharded one in both wirings (seconds the median
+  of ``REPS`` runs, and its exchange bytes and seconds), then proves
+  ``run_block_flow(prove=True, recursive=True)`` with the block proof's
+  commitments over the mesh; every rank's block proof must equal
+  ``golden/block_flow_standard.sha256``.
 
 Every mismatch, and a host with fewer than two cards, exits non-zero.  The
 last line is ``{"ok": true, "cards": d}``.
@@ -25,6 +35,7 @@ last line is ``{"ok": true, "cards": d}``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -48,12 +59,16 @@ from intmax_zkp_core_tpu_torch.ops import ntt as nt  # noqa: E402
 from intmax_zkp_core_tpu_torch.ops import poseidon_cuda as pc  # noqa: E402
 from intmax_zkp_core_tpu_torch.parallel import merkle_sharded as ms  # noqa: E402
 from intmax_zkp_core_tpu_torch.parallel import prove_many  # noqa: E402
+from intmax_zkp_core_tpu_torch.parallel import mesh as pm  # noqa: E402
 from intmax_zkp_core_tpu_torch.parallel.mesh import gather, make_mesh, use_commit_mesh  # noqa: E402
 from intmax_zkp_core_tpu_torch.parallel.ntt_sharded import coset_lde_sharded  # noqa: E402
 from intmax_zkp_core_tpu_torch.utils.hash_out import HashOut  # noqa: E402
 
 ROWS, LOG_N, RATE_BITS, CAP_HEIGHT = 135, 16, 3, 4  # the block's wire commitment
 MESH_K, REPS = 5, 5
+WORKER_TIMEOUT_S = 240  # a process per card: build, commitments, the block flow
+GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "intmax_zkp_core_tpu_torch", "golden", "block_flow_standard.sha256")
 
 
 def log(phase: str, **fields) -> None:
@@ -136,7 +151,96 @@ def check_proofs(mesh) -> None:
         commit_mesh="equal to one card's", **{f"{k}_s": v for k, v in timings.items()})
 
 
+def card_process(rank: int, world: int, port: int) -> None:
+    """One process of ``[cards-processes]`` (its card is its ``cuda:0``):
+    prints one JSON line of its results."""
+    from intmax_zkp_core_tpu_torch.engine.prover import _commit_batch
+    from intmax_zkp_core_tpu_torch.engine.serde import proof_to_json
+    from intmax_zkp_core_tpu_torch.models.rollup.block_flow import run_block_flow
+
+    mesh = pm.init_distributed(f"localhost:{port}", world, rank, devices=["cuda:0"])
+    route = pm.exchange_route(mesh).backend
+    if route != "nccl":
+        raise RuntimeError(f"one process per card took the {route} route, not NCCL")
+    card = torch.device("cuda:0")
+    rng = np.random.default_rng(12)
+    coeffs = gl.from_u64(rng.integers(0, gl.P_INT, size=(ROWS, 1 << LOG_N), dtype=np.uint64),
+                         card)[None]
+    out = {"rank": rank, "card": str(torch.cuda.get_device_properties(card).uuid)[:8],
+           "route": route}
+    for fused in (False, True):
+        want, seconds = timed(lambda: _commit_batch(coeffs, RATE_BITS, CAP_HEIGHT, True, fused))
+        stats = dict(pm.EXCHANGE_STATS)
+        with use_commit_mesh(mesh, min_lde=1):
+            got, sharded_s = timed(lambda: _commit_batch(coeffs, RATE_BITS, CAP_HEIGHT, True,
+                                                         fused))
+        bad = mismatches(got[1], want[1]) + sum(
+            mismatches(a, b) for a, b in zip(got[2][0].levels, want[2][0].levels))
+        if bad:
+            raise RuntimeError(f"rank {rank}: the commitment over {world} cards, {bad} mismatches")
+        out["chained" if not fused else "fused"] = {
+            "seconds": seconds, "sharded_seconds": sharded_s,
+            **{f"exchange_{k}_per_run": (pm.EXCHANGE_STATS[k] - stats[k]) / REPS
+               for k in stats}}
+    timings = {}
+    stats = dict(pm.EXCHANGE_STATS)
+    with use_commit_mesh(mesh):
+        res = run_block_flow(prove=True, recursive=True, timings=timings)
+    out["block"] = {
+        "sha256": hashlib.sha256(json.dumps(
+            proof_to_json(res.block_proof.proof), sort_keys=True).encode()).hexdigest(),
+        "prove_s": timings["prove_block"],
+        "commit_phases_s": {k: timings["prove_block_phases"][k]
+                            for k in ("commit_wires", "perm_columns", "quotient_commit")},
+        **{f"exchange_{k}": pm.EXCHANGE_STATS[k] - stats[k] for k in stats}}
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def check_processes(world: int) -> None:
+    """``world`` processes, one per card, each running ``card_process``."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(rank), "--world", str(world),
+         "--port", str(port)],
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": str(rank)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"card process {rank} of {world} exited {p.returncode}:\n"
+                               f"{text[-4000:]}")
+    with open(GOLDEN) as f:
+        golden = [ln.split()[0] for ln in f.read().splitlines()
+                  if ln and not ln.startswith(("#", "circuit_digest"))][0]
+    for text in outs:
+        r = json.loads(text.strip().splitlines()[-1])
+        if r["block"]["sha256"] != golden:
+            raise RuntimeError(f"rank {r['rank']} of {world}: block proof {r['block']['sha256']} "
+                               f"!= golden {golden}")
+        log("cards-processes", processes=world, block_proof="equal to the golden",
+            seconds=round(time.perf_counter() - t0, 3), **r)
+
+
 def main() -> int:
+    if "--rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        card_process(int(args["--rank"]), int(args["--world"]), int(args["--port"]))
+        return 0
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("this script needs two or more CUDA cards", file=sys.stderr)
         return 1
@@ -151,6 +255,8 @@ def main() -> int:
         peer_access=[torch.cuda.can_device_access_peer(0, i) for i in range(1, mesh.size)])
     check_commit(mesh, first)
     check_proofs(mesh)
+    for world in sorted({2, mesh.size}):
+        check_processes(world)
     print(json.dumps({"ok": True, "cards": mesh.size}))
     return 0
 

@@ -14,7 +14,13 @@
 //     launch 1, the n2 columns as sequences of length n1, each output times
 //       w^(i2 * k1) (the inverse's 1/n folded into that table);
 //     launch 2, the n1 rows as sequences of length n2, written transposed, so
-//       X[k1 + n1 * k2] lands at k2 * n1 + k1: natural order, no extra pass.
+//       X[k1 + n1 * k2] lands at k2 * n1 + k1: natural order, no extra pass;
+//   n  > 2^22 (the JAX package falls back to XLA there; no TPU kernel): an
+//     outer four-step with n1 = 2^11, launch 1 as above with 1/n1 in the
+//     table, the rows' length-n2 transforms by the wrapper itself (four-step,
+//     n2 > 2^11), then ntt_transpose writes [n1, n2] as [n2, n1].
+// The grid's second axis carries the batch rows: the wrapper splits more
+// than 65,535 of them over launches.
 //
 // The transform is the plain version's radix-2 decimation in time
 // (ops/ntt.py::_ntt_impl: bit-reversed input; stage s joins blocks of
@@ -134,7 +140,8 @@ __device__ __forceinline__ void write_out(u64 (&y)[R], u64* __restrict__ d, int 
     if (post_tw != nullptr) {
 #pragma unroll
         for (int k = 0; k < R; ++k)
-            y[k] = gl_mul_loose(y[k], __ldg(post_tw + (u + (k << LOG_UNITS)) * post_stride + q));
+            y[k] = gl_mul_loose(
+                y[k], __ldg(post_tw + (long long)(u + (k << LOG_UNITS)) * post_stride + q));
     }
     if (has_scale) {
 #pragma unroll
@@ -143,7 +150,7 @@ __device__ __forceinline__ void write_out(u64 (&y)[R], u64* __restrict__ d, int 
 #pragma unroll
     for (int k = 0; k < R; ++k) {
         const int idx = u + (k << LOG_UNITS);
-        d[OUT_ROWS ? idx : idx * out_stride] = gl_canon(y[k]);
+        d[OUT_ROWS ? (long long)idx : (long long)idx * out_stride] = gl_canon(y[k]);
     }
 }
 
@@ -186,7 +193,7 @@ ntt_local_kernel(const u64* __restrict__ in, u64* __restrict__ out, int log_grou
 #pragma unroll
         for (int t = 0; t < R; ++t) {
             const int i = u + (rev_bits<RHO>(t) << LOG_UNITS);
-            y[t] = s[IN_ROWS ? i : i * in_stride];
+            y[t] = s[IN_ROWS ? (long long)i : (long long)i * in_stride];
         }
         dit<R, R1>(y, w4, w8, w8_3);
         if constexpr (PASSES == 1) {
@@ -257,6 +264,39 @@ static int launch_local(const void* in, void* out, int log_group, int n_seq, int
     kernel<<<grid, THREADS, shared_bytes, (cudaStream_t)stream>>>(
         (const u64*)in, (u64*)out, log_group, n_seq, batch_stride, in_stride, out_stride,
         (const u64*)tw, (const u64*)post_tw, post_stride, scale, has_scale, w4, w8, w8_3);
+    return (int)cudaGetLastError();
+}
+
+// out[b][c][r] = in[b][r][c] for in [batch, rows, cols]: 32 x 32 tiles
+// through shared memory (a padding column: the column reads of 8-byte
+// elements take every bank of a half warp once).  Grid (cols / 32, rows / 32,
+// batch), 32 x 8 threads, each moving 4 elements each way.  A copy: bytes
+// bound it.
+#define TILE 32
+#define TILE_ROWS 8
+__global__ void __launch_bounds__(TILE * TILE_ROWS)
+transpose_kernel(const u64* __restrict__ in, u64* __restrict__ out, int rows, int cols) {
+    __shared__ u64 tile[TILE][TILE + 1];
+    const long long base = (long long)blockIdx.z * rows * cols;
+    const int c0 = blockIdx.x * TILE, r0 = blockIdx.y * TILE;
+    for (int k = threadIdx.y; k < TILE; k += TILE_ROWS) {
+        const int r = r0 + k, c = c0 + threadIdx.x;
+        if (r < rows && c < cols) tile[k][threadIdx.x] = in[base + (long long)r * cols + c];
+    }
+    __syncthreads();
+    for (int k = threadIdx.y; k < TILE; k += TILE_ROWS) {
+        const int c = c0 + k, r = r0 + threadIdx.x;
+        if (r < rows && c < cols) out[base + (long long)c * rows + r] = tile[threadIdx.x][k];
+    }
+}
+
+extern "C" int ntt_transpose(const void* in, void* out, int rows, int cols, int batch,
+                             void* stream) {
+    if (rows < 1 || cols < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned int)((cols + TILE - 1) / TILE), (unsigned int)((rows + TILE - 1) / TILE),
+              (unsigned int)batch);
+    transpose_kernel<<<grid, dim3(TILE, TILE_ROWS), 0, (cudaStream_t)stream>>>(
+        (const u64*)in, (u64*)out, rows, cols);
     return (int)cudaGetLastError();
 }
 

@@ -55,7 +55,7 @@ from ..ops import perm_quotient_cuda as pq
 from ..ops import poseidon as ps
 from ..ops import zinv_mul_cuda as zm
 from ..ops.perm_quotient_cuda import CHUNK, n_chunks  # noqa: F401  (the verifier reads them here)
-from ..parallel.merkle_sharded import build_merkle_levels_sharded, can_shard_tree
+from ..parallel.merkle_sharded import build_merkle_levels_sharded, can_shard_tree, gather_levels
 # SHARD_COMMIT_MIN_LDE: importable here, at the JAX package's path
 from ..parallel.mesh import SHARD_COMMIT_MIN_LDE, check_axis, commit_mesh, gather  # noqa: F401
 from ..parallel.ntt_sharded import can_shard, coset_lde_sharded
@@ -496,7 +496,10 @@ def _commit_batch(matrices, rate_bits: int, cap_height: int, from_coeffs: bool =
     Merkle levels are hashed shard by shard where the tree splits
     (``parallel/merkle_sharded.py``); both are then gathered onto the
     proof's device, so everything after the commitment runs as without a
-    mesh.  The values are the same either way."""
+    mesh.  Over a mesh that spans processes every process computes its own
+    shards from its own, identical coefficients and gathers the whole LDE
+    and tree (SPMD, as the JAX package's ``fetch_arrays``).  The values are
+    the same either way."""
     coeffs = matrices if from_coeffs else nt.intt(matrices)
     K, S, n = coeffs.shape
     lde_n = n << rate_bits
@@ -506,14 +509,15 @@ def _commit_batch(matrices, rate_bits: int, cap_height: int, from_coeffs: bool =
     if d > 1 and can_shard(lde_n, d):
         lde_parts = [p.reshape(K, S, lde_n // d) for p in coset_lde_sharded(
             coeffs.reshape(K * S, n), rate_bits, cm.mesh)]
-        lde = gather(lde_parts, -1, coeffs.device)
+        lde = gather(lde_parts, -1, coeffs.device, cm.mesh)
     else:
         lde = nt.coset_lde(coeffs, rate_bits)
     if d > 1 and can_shard_tree(lde_n, d, cap_height):
         leaves = (lde.transpose(1, 2) if lde_parts is None
                   else [p.transpose(1, 2) for p in lde_parts])
-        levels = [gather(parts, -2, coeffs.device) for parts in build_merkle_levels_sharded(
-            leaves, cap_height, cm.mesh, fused_sponge)]
+        levels = gather_levels(build_merkle_levels_sharded(leaves, cap_height, cm.mesh,
+                                                           fused_sponge),
+                               cap_height, cm.mesh, coeffs.device)
     else:
         levels = mk.build_merkle_levels_batch(lde.transpose(1, 2), cap_height,
                                               fused_sponge=fused_sponge)
@@ -549,10 +553,16 @@ def prove_batch(
     timed for the batch as a whole.
 
     ``mesh`` (``parallel/mesh.py::Mesh``) shards the proof axis instead:
-    ``_prove_batch_over_mesh``, which ``device`` does not apply to.
-    ``axis_name`` is the JAX package's keyword; a mesh's one axis is "d"."""
+    ``_prove_batch_over_mesh``, which ``device`` does not apply to; it
+    raises inside a commit mesh that spans processes (the JAX package has
+    no such combination).  ``axis_name`` is the JAX package's keyword; a
+    mesh's one axis is "d"."""
     check_axis(axis_name)
     if mesh is not None:
+        cm = commit_mesh().mesh
+        if cm is not None and cm.process_count > 1:
+            raise ValueError("prove_batch(mesh=) shards the proof axis; inside a commit mesh "
+                             "that spans processes, prove without a proof-axis mesh")
         return _prove_batch_over_mesh(circuit_data, pws, mesh, fused_sponge, timings)
     if len(pws) < 1:
         raise ValueError("prove_batch wants at least one witness")

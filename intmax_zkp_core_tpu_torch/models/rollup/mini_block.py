@@ -68,7 +68,8 @@ def run_mini_recursive_block(mesh=None, constants=MINI, config=MINI_CFG, circuit
     """Build + prove the mini recursive block.  Returns a dict with the
     inner proofs, the block circuit, the ``BlockDetail`` and the verified
     block proof.  ``mesh``: shard the inner proof groups over the proof
-    axis and the block commitments over the intra-op axis.  ``circuits``:
+    axis and the block commitments over the intra-op axis (a mesh from
+    ``init_distributed`` spans the processes, each running this call).  ``circuits``:
     reuse a ``build_mini_circuits`` result (built on the device the block
     proof is made on); otherwise they are built on ``device``."""
     if circuits is None:

@@ -68,7 +68,18 @@ _ARGTYPES = {
     "gate_quotient": [_VP, _LL, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _LL, _VP],
     "ntt_local": [_VP, _VP, _CI, _CI, _CI, _CI, _LL, _CI, _CI, _CI, _VP, _VP, _CI, _ULL, _CI,
                   _ULL, _ULL, _ULL, _VP],
+    "ntt_transpose": [_VP, _VP, _CI, _CI, _CI, _VP],
 }
+
+# The grid's second and third axes take at most this many blocks: a kernel
+# that puts rows or proofs there is launched once per chunk of them.
+MAX_GRID_YZ = 65535
+
+
+def grid_chunks(k: int) -> list:
+    """[start, stop) ranges covering 0 .. k - 1, none longer than
+    ``MAX_GRID_YZ``."""
+    return [(a, min(a + MAX_GRID_YZ, k)) for a in range(0, k, MAX_GRID_YZ)]
 
 _lib = None
 # the proof axis over several cards launches from one host thread per card:

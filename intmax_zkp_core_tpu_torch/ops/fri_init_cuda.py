@@ -45,8 +45,8 @@ def fri_initial_plain(comb1, comb2, xs, zetas, gzetas, c1z, c2gz) -> torch.Tenso
 
 def fri_initial_cuda(comb1, comb2, xs, zetas, gzetas, c1z, c2gz) -> torch.Tensor:
     """comb1, comb2 [K, L, 2], xs [L], zetas, gzetas, c1z, c2gz [K, 2] (int64
-    bit patterns) -> G [K, L, 2].  CUDA tensors: one launch (or an
-    exception).  CPU tensors: the plain version."""
+    bit patterns) -> G [K, L, 2].  CUDA tensors: one launch per 65,535
+    proofs (or an exception).  CPU tensors: the plain version."""
     name = "fri_initial_cuda"
     scalars = {"zetas": zetas, "gzetas": gzetas, "c1z": c1z, "c2gz": c2gz}
     cb.require_field(name, comb1=comb1, comb2=comb2, xs=xs, **scalars)
@@ -67,6 +67,9 @@ def fri_initial_cuda(comb1, comb2, xs, zetas, gzetas, c1z, c2gz) -> torch.Tensor
     cb.require_contiguous(name, comb1=comb1, comb2=comb2, xs=xs, **scalars)
     if comb1.data_ptr() % 16 or comb2.data_ptr() % 16:
         raise ValueError(f"{name} reads 16-byte pairs: comb1 and comb2 must be 16-byte aligned")
+    if K > cb.MAX_GRID_YZ:  # proofs ride on the grid's second axis
+        return torch.cat([fri_initial_cuda(comb1[a:b], comb2[a:b], xs, zetas[a:b], gzetas[a:b],
+                                           c1z[a:b], c2gz[a:b]) for a, b in cb.grid_chunks(K)])
     out = torch.empty_like(comb1)
     if out.numel() == 0:
         return out

@@ -14,7 +14,10 @@ poseidon_gate_quotient_pallas`` and its ``_batched`` form (K = 1 is the
 single-proof form).  The kernel (``csrc/gate_quotient.cu``) runs one thread
 per (proof, point): all 123 constraints on loose values, each folded into
 the C sums as soon as it exists, every sum (the C folds, each table row)
-kept unreduced and reduced once.  Its constants (round constants, MDS, the
+kept unreduced and reduced once.  Its sums are registers, so a launch takes
+at most ``MAX_C`` challenges: more go over one launch per group
+(``challenge_groups``), as more than 65,535 proofs, the grid's second axis,
+go over one launch per chunk.  Its constants (round constants, MDS, the
 gate's wire layout and the affine tables ``PARTIAL_A`` / ``PARTIAL_B`` as
 dense rows) are uploaded once from the port's own Python constants.
 
@@ -119,11 +122,24 @@ def poseidon_gate_quotient_plain(wires_lde, sel_col, alphas, acc, apows):
     return torch.stack(accs), torch.stack(pows)
 
 
+def challenge_groups(fn, wires_lde, sel_col, alphas, acc, apows):
+    """``fn`` (this module's wrapper or plain version) over the challenges in
+    groups of at most ``MAX_C``, the groups' results joined: each
+    challenge's sum and power of alpha are its own, so no value passes
+    between the groups."""
+    C = acc.shape[1]
+    parts = [fn(wires_lde, sel_col, alphas[:, a:b].contiguous(), acc[:, a:b].contiguous(),
+                apows[:, a:b].contiguous())
+             for a, b in ((a, min(a + MAX_C, C)) for a in range(0, C, MAX_C))]
+    return torch.cat([p[0] for p in parts], dim=1), torch.cat([p[1] for p in parts], dim=1)
+
+
 def poseidon_gate_quotient_cuda(wires_lde, sel_col, alphas, acc, apows):
     """wires_lde [K, W >= 135, L] (any row and proof strides, last axis
     contiguous), sel_col [L], alphas [K, C], acc [K, C, L], apows [K, C]; int64
-    bit patterns.  CUDA tensors: one launch (or an exception).  CPU tensors:
-    the plain version."""
+    bit patterns.  CUDA tensors: one launch per group of at most ``MAX_C``
+    challenges and 65,535 proofs (or an exception).  CPU tensors: the plain
+    version."""
     name = "poseidon_gate_quotient_cuda"
     tensors = {"sel_col": sel_col, "alphas": alphas, "acc": acc, "apows": apows}
     cb.require_field(name, wires_lde=wires_lde, **tensors)
@@ -144,8 +160,14 @@ def poseidon_gate_quotient_cuda(wires_lde, sel_col, alphas, acc, apows):
     cb.require_contiguous(name, **tensors)
     if L > 1 and wires_lde.stride(2) != 1:
         raise ValueError(f"{name} wants the last axis of wires_lde contiguous")
-    if not 1 <= C <= MAX_C or K < 1 or L < 1:
-        raise ValueError(f"{name} takes K >= 1, 1 <= C <= {MAX_C} and L >= 1, got {(K, C, L)}")
+    if K < 1 or C < 1 or L < 1:
+        raise ValueError(f"{name} takes K >= 1, C >= 1 and L >= 1, got {(K, C, L)}")
+    if C > MAX_C:
+        return challenge_groups(poseidon_gate_quotient_cuda, wires_lde, sel_col, alphas, acc, apows)
+    if K > cb.MAX_GRID_YZ:  # proofs ride on the grid's second axis
+        parts = [poseidon_gate_quotient_cuda(wires_lde[a:b], sel_col, alphas[a:b], acc[a:b],
+                                             apows[a:b]) for a, b in cb.grid_chunks(K)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     _ready(acc.device)
     out = torch.empty_like(acc)
     apows_out = torch.empty_like(apows)

@@ -119,8 +119,8 @@ def perm_columns_cuda(wires, betas, gammas, id_vals, sigma):
     id_vals, sigma [R, n] -> (z [K, C, n], pp [K, C, nch-1, n], wrap [K, C]),
     int64 bit patterns of canonical field elements; ``wires`` may be a view
     with any row and proof strides (its last axis contiguous).  CUDA tensors:
-    ``LAUNCHES_PER_CALL`` launches (or an exception).  CPU tensors: the plain
-    version."""
+    ``LAUNCHES_PER_CALL`` launches per 65,535 proofs (or an exception).  CPU
+    tensors: the plain version."""
     name = "perm_columns_cuda"
     cb.require_field(name, wires=wires, betas=betas, gammas=gammas, id_vals=id_vals, sigma=sigma)
     if wires.dim() != 3 or betas.dim() != 2 or id_vals.dim() != 2:
@@ -150,6 +150,10 @@ def perm_columns_cuda(wires, betas, gammas, id_vals, sigma):
         raise ValueError(f"{name} wants the last axis of wires contiguous")
     if K * C * n == 0:
         raise ValueError(f"{name} wants at least one proof, challenge and point, got {(K, C, n)}")
+    if K > cb.MAX_GRID_YZ:  # proofs ride on the grid's second and third axes
+        parts = [perm_columns_cuda(wires[a:b], betas[a:b], gammas[a:b], id_vals, sigma)
+                 for a, b in cb.grid_chunks(K)]
+        return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
     dev = wires.device
     z = torch.empty((K, C, n), dtype=torch.int64, device=dev)
     pp = torch.empty((K, C, nch - 1, n), dtype=torch.int64, device=dev)

@@ -85,8 +85,8 @@ def perm_quotient_cuda(wires_lde, zs_lde, pps_lde, betas, gammas, alphas,
     """Shapes as ``perm_quotient_plain``, int64 bit patterns of canonical
     field elements.  ``wires_lde``
     may carry more rows than are routed and may be a view with any row and
-    proof strides (its last axis contiguous).  CUDA tensors: one launch (or
-    an exception).  CPU tensors: the plain version."""
+    proof strides (its last axis contiguous).  CUDA tensors: one launch per
+    65,535 proofs (or an exception).  CPU tensors: the plain version."""
     name = "perm_quotient_cuda"
     tensors = {
         "wires_lde": wires_lde, "zs_lde": zs_lde, "pps_lde": pps_lde, "betas": betas,
@@ -122,10 +122,15 @@ def perm_quotient_cuda(wires_lde, zs_lde, pps_lde, betas, gammas, alphas,
     cb.require_contiguous(name, **tensors)
     if L > 1 and wires_lde.stride(2) != 1:
         raise ValueError(f"{name} wants the last axis of wires_lde contiguous")
+    if K * C * L == 0:
+        raise ValueError(f"{name} wants at least one proof, challenge and point, got {(K, C, L)}")
+    if K > cb.MAX_GRID_YZ:  # proofs ride on the grid's third axis
+        parts = [perm_quotient_cuda(wires_lde[a:b], zs_lde[a:b], pps_lde[a:b], betas[a:b],
+                                    gammas[a:b], alphas[a:b], sigma_lde, xs, l0, k_is, blowup)
+                 for a, b in cb.grid_chunks(K)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
     out = torch.empty((K, C, L), dtype=torch.int64, device=zs_lde.device)
     apows = torch.empty((K, C), dtype=torch.int64, device=zs_lde.device)
-    if out.numel() == 0:
-        raise ValueError(f"{name} wants at least one proof, challenge and point, got {(K, C, L)}")
     cb.launch(name, "perm_quotient", zs_lde.device,
               wires_lde.data_ptr(), wires_lde.stride(0), wires_lde.stride(1),
               zs_lde.data_ptr(), pps_lde.data_ptr(), sigma_lde.data_ptr(), xs.data_ptr(),

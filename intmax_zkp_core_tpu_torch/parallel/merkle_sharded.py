@@ -8,8 +8,11 @@ sponge kernel under ``fused_sponge=True``) and folds its subtree down to the
 lowest level that still has a node per shard or per cap entry.  Pairs are the
 even/odd rows of ``ops/merkle.py``; since the blocks are contiguous powers of
 two, no pair crosses a shard.  Where the cap is smaller than d, only the d
-block roots move, to the first device, and the top levels fold there.  Every
-level equals ``ops/merkle.py::build_merkle_levels_batch``'s bit for bit.
+block roots move: to the process's first device, from every process
+(``parallel/mesh.py::gather``, the JAX package's ``all_gather`` of the
+roots), and the top levels fold there, on every process.  A process hashes
+only its own shards' blocks.  Every level equals
+``ops/merkle.py::build_merkle_levels_batch``'s bit for bit.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import merkle as mk
-from .mesh import Mesh, local_devices
+from .mesh import Mesh, gather, local_devices
 
 # bumped on every sharded tree build (tests read it to see the path taken)
 SHARDED_TREE_CALLS = 0
@@ -33,30 +36,39 @@ def can_shard_tree(n: int, d: int, cap_height: int) -> bool:
     return n >= (1 << cap_height) and n > d
 
 
+def n_top_levels(d: int, cap_height: int) -> int:
+    """The levels above the d block roots that fold whole on every process
+    (none where the cap has at least d nodes)."""
+    cap_n = 1 << cap_height
+    return 0 if cap_n >= d else (d // cap_n).bit_length() - 1
+
+
 def build_merkle_levels_sharded(leaves, cap_height: int, mesh: Mesh,
                                 fused_sponge: bool = False) -> list:
     """Leaf rows [..., n, w] -> the tree levels of each leading index, like
     ``ops/merkle.py::build_merkle_levels_batch``, with the hashing and the
     folds sharded over ``mesh``.
 
-    ``leaves`` is one tensor, split here into d row blocks, or already its
-    d blocks [..., n/d, w] (part i on ``mesh.devices[i]``).  Returns one
-    entry per level, leaf digests first: a level of at least max(d,
-    2^cap_height) nodes is its d parts [..., m/d, 4]; a smaller top level is
-    one part on ``mesh.devices[0]`` (``parallel/mesh.py::gather(parts, -2,
-    device)`` assembles either)."""
+    ``leaves`` is one tensor, the same on every process, split here into d
+    row blocks, or this process's blocks [..., n/d, w] (part i, block
+    ``mesh.first + i``, on ``mesh.devices[i]``).  Returns one entry per
+    level, leaf digests first: a level of at least max(d, 2^cap_height)
+    nodes is this process's parts [..., m/d, 4]; each of the
+    ``n_top_levels`` smaller ones is one part, the whole level, on
+    ``mesh.devices[0]`` (``gather_levels`` assembles them)."""
     global SHARDED_TREE_CALLS
     devices = local_devices(mesh)
-    d = len(devices)
+    d, L = mesh.size, len(devices)
     if isinstance(leaves, torch.Tensor):
         n = leaves.shape[-2]
         if n % d:
             raise ValueError(f"{n} leaves do not split over {d} shards")
-        parts = [p.to(dev) for p, dev in zip(leaves.split(n // d, dim=-2), devices)]
+        mine = leaves.split(n // d, dim=-2)[mesh.first : mesh.first + L]
+        parts = [p.to(dev) for p, dev in zip(mine, devices)]
     else:
         parts = list(leaves)
-        if len(parts) != d:
-            raise ValueError(f"{len(parts)} leaf blocks for a mesh of {d} shards")
+        if len(parts) != L:
+            raise ValueError(f"{len(parts)} leaf blocks for a process of {L} shards")
         n = parts[0].shape[-2] * d
     if not can_shard_tree(n, d, cap_height):
         raise ValueError(f"a tree of {n} leaves at cap height {cap_height} does not split "
@@ -75,10 +87,18 @@ def build_merkle_levels_sharded(leaves, cap_height: int, mesh: Mesh,
     out = [tuple(lv.reshape(lead + lv.shape[1:]) for lv in level)
            for level in zip(*shard_levels)]
     if cap_n < d:
-        # only the d block roots move; the top levels fold on one device
-        cur = torch.cat([levels[-1].to(devices[0]) for levels in shard_levels], dim=1)
+        # only the d block roots move; the top levels fold on every process
+        cur = gather([levels[-1] for levels in shard_levels], 1, devices[0], mesh)
         while cur.shape[1] > cap_n:
             cur = mk._level_two_to_one_batch(cur, fused_sponge)
             out.append((cur.reshape(lead + cur.shape[1:]),))
     SHARDED_TREE_CALLS += 1
     return out
+
+
+def gather_levels(levels: list, cap_height: int, mesh: Mesh, device) -> list:
+    """``build_merkle_levels_sharded``'s levels, each whole on ``device``
+    (on every process, for a mesh over several)."""
+    top = len(levels) - n_top_levels(mesh.size, cap_height)
+    return [gather(parts, -2, device, mesh) if k < top else parts[0].to(device)
+            for k, parts in enumerate(levels)]

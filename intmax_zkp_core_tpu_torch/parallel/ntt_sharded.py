@@ -11,13 +11,15 @@ Shard i holds the columns i2 in [i*n2/d, (i+1)*n2/d), so its column NTTs are
 local; the first exchange hands shard j the rows k1 in [j*n1/d, (j+1)*n1/d)
 of every column for its row NTTs, and the second hands shard m the outputs
 k2 in [m*n2/d, (m+1)*n2/d), which are the m-th contiguous block of the
-result in natural order.  An exchange is a copy of each part to the device
-that takes it: a peer copy between cards, a plain device copy between two
-shards on one card.
+result in natural order.  An exchange (``parallel/mesh.py::exchange``) is a
+copy of each block to the device that takes it between a process's own
+shards (a peer copy between cards, a plain device copy between two shards
+on one card) and one ``torch.distributed`` all-to-all across processes: a
+process computes only its own shards.
 
 Each shard's column and row NTTs go through ``ops/ntt.py::ntt``: on the card
-one launch of the NTT kernel (``ops/ntt_cuda.py``) each, since n1 and n2 are
-at most 2^11 for every n up to 2^22; on the CPU its plain version.  The
+the NTT kernel (``ops/ntt_cuda.py``), one launch each for every n up to 2^22
+(n1 and n2 at most 2^11); on the CPU its plain version.  The
 twiddle is the single-device four-step's table (``ntt_cuda.fourstep_twiddles``)
 sliced to the shard's columns.  The result equals ``ops/ntt.py::ntt`` bit for
 bit.
@@ -30,7 +32,7 @@ import torch
 from ..ops import goldilocks as gl
 from ..ops import ntt as nt
 from ..ops.ntt_cuda import fourstep_twiddles
-from .mesh import Mesh, local_devices
+from .mesh import Mesh, exchange, local_devices
 
 P = gl.P_INT
 
@@ -53,11 +55,13 @@ def can_shard(n: int, d: int) -> bool:
 
 def ntt_sharded_batch(x: torch.Tensor, mesh: Mesh) -> tuple:
     """Batched four-step NTT over the mesh: coefficient rows [B, n] ->
-    evaluations in natural order as d parts [B, n/d], part m (outputs
-    [m*n/d, (m+1)*n/d)) on ``mesh.devices[m]``.  Raises unless n is a power of
-    two whose four-step factors d divides (``can_shard``)."""
+    evaluations in natural order as this process's parts [B, n/d], part m
+    (outputs [m*n/d, (m+1)*n/d), m counted over the whole mesh from
+    ``mesh.first``) on its device of ``mesh.devices``.  Every process passes
+    the same ``x``.  Raises unless n is a power of two whose four-step
+    factors d divides (``can_shard``)."""
     devices = local_devices(mesh)
-    d = len(devices)
+    d, first = mesh.size, mesh.first
     B, n = x.shape
     log_n = n.bit_length() - 1
     if n != 1 << log_n or not can_shard(n, d):
@@ -70,28 +74,25 @@ def ntt_sharded_batch(x: torch.Tensor, mesh: Mesh) -> tuple:
     # b[i] [B, w, n1], its columns as rows
     b = []
     for i, dev in enumerate(devices):
-        part = cols[:, :, i * w : (i + 1) * w].transpose(1, 2).contiguous().to(dev)
-        tw = _twiddle_matrix(log_n1, log_n - log_n1, dev)[:, i * w : (i + 1) * w]
+        g = first + i
+        part = cols[:, :, g * w : (g + 1) * w].transpose(1, 2).contiguous().to(dev)
+        tw = _twiddle_matrix(log_n1, log_n - log_n1, dev)[:, g * w : (g + 1) * w]
         b.append(gl.mul(nt.ntt(part), tw.t().contiguous()))
     # first exchange: shard j takes the rows k1 of its block from every
     # column, then its row NTTs: c[j] [B, h, n2]
-    c = []
-    for j, dev in enumerate(devices):
-        rows = torch.cat([bi[:, :, j * h : (j + 1) * h].to(dev) for bi in b], dim=1)
-        c.append(nt.ntt(rows.transpose(1, 2).contiguous()))
+    got = exchange([[bi[:, :, j * h : (j + 1) * h] for j in range(d)] for bi in b], mesh)
     del b
+    c = [nt.ntt(torch.cat(blocks, dim=1).transpose(1, 2).contiguous()) for blocks in got]
     # second exchange: shard m takes the outputs k2 of its block from every
     # row block, in natural order k = k2 * n1 + k1
-    out = []
-    for m, dev in enumerate(devices):
-        block = torch.cat([cj[:, :, m * w : (m + 1) * w].to(dev) for cj in c], dim=1)
-        out.append(block.transpose(1, 2).reshape(B, w * n1))
-    return tuple(out)
+    got = exchange([[cj[:, :, m * w : (m + 1) * w] for m in range(d)] for cj in c], mesh)
+    del c
+    return tuple(torch.cat(blocks, dim=1).transpose(1, 2).reshape(B, w * n1) for blocks in got)
 
 
 def ntt_sharded(x: torch.Tensor, mesh: Mesh) -> tuple:
-    """Single-polynomial NTT [n] over the mesh: d parts [n/d] of the
-    evaluations in natural order."""
+    """Single-polynomial NTT [n] over the mesh: this process's parts [n/d]
+    of the evaluations in natural order."""
     return tuple(p[0] for p in ntt_sharded_batch(x[None], mesh))
 
 
@@ -103,7 +104,7 @@ def coset_lde_sharded(
 ) -> tuple:
     """Sharded counterpart of ``ops/ntt.py::coset_lde``: coefficient rows
     [B, n] -> their evaluations on the shifted 2^rate_bits-times larger coset
-    as d parts [B, lde_n/d] (``ntt_sharded_batch``)."""
+    as this process's parts [B, lde_n/d] (``ntt_sharded_batch``)."""
     B, n = a.shape
     lde_n = n << rate_bits
     shifted = gl.mul(a, nt._shift_powers(n, shift % P, a.device))

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from intmax_zkp_core_tpu_torch.ops import cuda_build as cb
 from intmax_zkp_core_tpu_torch.ops import fri_init_cuda as fi
 from intmax_zkp_core_tpu_torch.ops import gate_quotient_cuda as gqc
 from intmax_zkp_core_tpu_torch.ops import goldilocks as gl
@@ -204,14 +205,14 @@ def test_ntt_cuda_launch_plan_regimes_on_edge_lanes(card, B, log_n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 3, 4])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 9])  # above 4: one launch per group of four
 def test_poseidon_gate_quotient_cuda_every_challenge_count(card, C):
     K, L = 2, 1000  # L not a multiple of the kernel's block of points
     args = [_edge(70, (K, 135, L), card), _edge(71, (L,), card), _edge(72, (K, C), card),
             _edge(73, (K, C, L), card), _edge(74, (K, C), card)]
     before = pc.launch_counts()["poseidon_gate_quotient_cuda"]
     acc, apows = gqc.poseidon_gate_quotient_cuda(*args)
-    assert pc.launch_counts()["poseidon_gate_quotient_cuda"] == before + 1
+    assert pc.launch_counts()["poseidon_gate_quotient_cuda"] == before + -(-C // gqc.MAX_C)
     want_acc, want_apows = gqc.poseidon_gate_quotient_plain(*args)
     assert torch.equal(acc, want_acc) and torch.equal(apows, want_apows)
     assert _canonical(acc) and _canonical(apows)
@@ -223,11 +224,71 @@ def test_ntt_and_gate_wrappers_never_take_the_plain_path_for_a_cuda_tensor(card)
     with pytest.raises(ValueError):
         nc.ntt_cuda(x.t(), False)  # strided rows
     with pytest.raises(ValueError):
-        nc.ntt_cuda(_rand(51, (1, 1 << 23), card), False)  # above the stated limit
+        nc.ntt_cuda(torch.empty((1, 1 << 33), dtype=torch.int64, device="meta"))  # no 2^33 roots
+    x = _rand(51, (1, 1 << 23), card)  # the outer four-step: computed, as the JAX package does
+    before = pc.launch_counts()["ntt_cuda"]
+    assert torch.equal(nc.ntt_cuda(x, False), nc.ntt_plain(x, False))
+    assert pc.launch_counts()["ntt_cuda"] == before + nc.launches_for(1 << 23)
     args = [_rand(52, (1, 135, 64), card), _rand(53, (64,), card), _rand(54, (1, 5), card),
             _rand(55, (1, 5, 64), card), _rand(56, (1, 5), card)]
-    with pytest.raises(ValueError):
-        gqc.poseidon_gate_quotient_cuda(*args)  # C = 5 above the kernel's four
+    got = gqc.poseidon_gate_quotient_cuda(*args)  # C = 5: two launches
+    assert all(torch.equal(g, w) for g, w in zip(got, gqc.poseidon_gate_quotient_plain(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,log_n", [(1, 23), (2, 24), (70_000, 12)], ids=str)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_cuda_beyond_one_four_step_equals_plain(card, B, log_n, inverse):
+    # n > 2^22: the outer four-step; more than 65,535 rows: several launches
+    x = _rand(57 + log_n, (B, 1 << log_n), card)
+    before = pc.launch_counts()["ntt_cuda"]
+    got = nc.ntt_cuda(x, inverse)
+    assert pc.launch_counts()["ntt_cuda"] == before + nc.launches_for(1 << log_n, B)
+    assert torch.equal(got, nc.ntt_plain(x, inverse)) and _canonical(got)
+
+
+PERIOD = 7  # distinct proofs tiled over K; 65,535 is no multiple of it
+
+
+def _tiled(K, *distinct):
+    """Each tensor's 7 distinct proofs repeated over K proofs."""
+    idx = torch.arange(K, device=distinct[0].device) % PERIOD
+    return [t[idx] for t in distinct]
+
+
+@pytest.mark.cuda
+def test_kernels_take_more_proofs_than_a_grid_axis(card):
+    # K = 65,536 proofs, one more than the grid's second and third axes take;
+    # the plain versions, one proof at a time, run on the 7 distinct ones
+    K, L, R, C = cb.MAX_GRID_YZ + 1, 8, 9, 2
+    idx = torch.arange(K, device=card) % PERIOD
+
+    def check(cuda_fn, plain_fn, per_proof, shared):
+        got = cuda_fn(*_tiled(K, *per_proof), *shared)
+        want = plain_fn(*per_proof, *shared)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all(torch.equal(g, w[idx]) for g, w in zip(got, want))
+
+    xs = _rand(82, (L,), card)
+    check(lambda c1, c2, *r: fi.fri_initial_cuda(c1, c2, xs, *r),
+          lambda c1, c2, *r: fi.fri_initial_plain(c1, c2, xs, *r),
+          [_rand(80, (PERIOD, L, 2), card), _rand(81, (PERIOD, L, 2), card)] + [
+              _rand(83 + i, (PERIOD, 2), card) for i in range(4)], [])
+    sel = _rand(91, (L,), card)
+    check(lambda w, *r: gqc.poseidon_gate_quotient_cuda(w, sel, *r),
+          lambda w, *r: gqc.poseidon_gate_quotient_plain(w, sel, *r),
+          [_rand(90, (PERIOD, 135, L), card), _rand(92, (PERIOD, C), card),
+           _rand(93, (PERIOD, C, L), card), _rand(94, (PERIOD, C), card)], [])
+    wires = _rand(95, (PERIOD, R, L), card)
+    check(pcol.perm_columns_cuda, pcol.perm_columns_plain,
+          [wires, _rand(96, (PERIOD, C), card), _rand(97, (PERIOD, C), card)],
+          [_rand(98, (R, L), card), _rand(99, (R, L), card)])
+    nch = pq.n_chunks(R)
+    check(pq.perm_quotient_cuda, pq.perm_quotient_plain,
+          [wires, _rand(100, (PERIOD, C, L), card), _rand(101, (PERIOD, C, nch - 1, L), card)]
+          + [_rand(102 + i, (PERIOD, C), card) for i in range(3)],
+          [_rand(105, (R, L), card), _rand(106, (L,), card), _rand(107, (L,), card),
+           _rand(108, (R,), card), 8])
 
 
 def _batch_points(layout, L):

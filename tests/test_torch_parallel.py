@@ -237,8 +237,8 @@ def test_mesh_entry_points_and_limits():
         use_commit_mesh(m1, "x").__enter__()
     with pytest.raises(KeyError):
         prove_batch(None, [], mesh=m1, axis_name="x")
-    with pytest.raises(ValueError):
-        use_commit_mesh(Mesh(["cpu"], process_count=2)).__enter__()
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        use_commit_mesh(Mesh(["cpu"], process_count=2)).__enter__()  # no process group
     assert commit_mesh().mesh is None
     x = gl.from_u64(_field(3, (1 << 5,)), "cpu")
     with pytest.raises(ValueError):
