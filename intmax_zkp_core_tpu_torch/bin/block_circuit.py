@@ -46,7 +46,8 @@ def prove_batch_over(block_circuit, block_proofs: list, device=None,
     Returns ``data``, ``witness`` and ``proof``.  ``timings``, when given,
     receives seconds per stage (``build_batch_circuit``, ``batch_witness``,
     ``prove_batch``, ``verify_batch``) and, under ``prove_batch_phases``,
-    the prove's seconds per phase."""
+    the prove's seconds per phase, all on the device's timeline with no
+    synchronize (``engine/spans.py::PhaseTimer``)."""
     from ..engine.circuit import CircuitBuilder
     from ..engine.prover import PhaseTimer
     from ..engine.witness import PartialWitness
@@ -54,7 +55,7 @@ def prove_batch_over(block_circuit, block_proofs: list, device=None,
     from ..ops import goldilocks as gl
 
     device = gl.resolve_device(device)
-    stage = PhaseTimer(timings, device)
+    stage = PhaseTimer(timings, device, prefix="block_batch")
     phases = None if timings is None else timings.setdefault("prove_batch_phases", {})
     stage.phase("build_batch_circuit")
     builder = CircuitBuilder(block_circuit.data.common.config, device)
@@ -68,7 +69,7 @@ def prove_batch_over(block_circuit, block_proofs: list, device=None,
     proof = data.prove(pw, timings=phases)
     stage.phase("verify_batch")
     data.verify(proof)
-    stage.phase("_end")
+    stage.close()
     return SimpleNamespace(data=data, witness=pw, proof=proof)
 
 

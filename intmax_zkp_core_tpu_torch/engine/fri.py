@@ -28,6 +28,7 @@ from ..ops import poseidon as ps
 from .algebra import ext_add, ext_mul, ext_sub
 from .challenger import Challenger
 from .config import FriConfig
+from .spans import TRANSCRIPT, span
 
 P = gl.P_INT
 
@@ -95,10 +96,11 @@ def fold_layers(
         cap_h = min(cfg.cap_height, (half - 1).bit_length())
         layer_trees = mk.device_merkle_trees_batch(leaf, cap_h, fused_sponge=fused_sponge)
         betas = []
-        for proof_trees, tree, challenger in zip(trees, layer_trees, challengers):
-            proof_trees.append(tree)
-            challenger.observe_cap([tuple(int(x) for x in d) for d in tree.cap])
-            betas.append(challenger.get_extension_challenge())
+        with span(TRANSCRIPT):
+            for proof_trees, tree, challenger in zip(trees, layer_trees, challengers):
+                proof_trees.append(tree)
+                challenger.observe_cap([tuple(int(x) for x in d) for d in tree.cap])
+                betas.append(challenger.get_extension_challenge())
         inv2x = _inv_2x_table(m.bit_length() - 1, cur_shift, device)
         beta_arr = gl.from_u64(np.array(betas, dtype=np.uint64), device)
         cur = _fold_step(cur, inv2x, beta_arr)
@@ -109,11 +111,12 @@ def fold_layers(
     flat = torch.cat([cur[:, :, 0], cur[:, :, 1]], dim=0)  # [2K, final_n]
     coeffs = mk.fetch_arrays(nt.coset_ilde(flat, cfg.rate_bits, cur_shift))[0]
     final_polys = []
-    for k, challenger in enumerate(challengers):
-        final_poly = [(int(a), int(b)) for a, b in zip(coeffs[k], coeffs[K + k])]
-        for c in final_poly:
-            challenger.observe_ext(c)
-        final_polys.append(final_poly)
+    with span(TRANSCRIPT):
+        for k, challenger in enumerate(challengers):
+            final_poly = [(int(a), int(b)) for a, b in zip(coeffs[k], coeffs[K + k])]
+            for c in final_poly:
+                challenger.observe_ext(c)
+            final_polys.append(final_poly)
     return trees, final_polys
 
 
@@ -136,20 +139,21 @@ def grind_pow(
     batch = min(1 << 14, 1 << (pow_bits + 2))
     threshold = 1 << (64 - pow_bits)
     base = 0
-    while True:
-        nonces = np.arange(base, base + batch, dtype=np.uint64)
-        inputs = np.zeros((batch, 2), dtype=np.uint64)
-        inputs[:, 0] = c
-        inputs[:, 1] = nonces
-        digests = gl.to_u64(
-            ps.hash_no_pad(gl.from_u64(inputs, device), fused_sponge=fused_sponge)
-        )
-        ok = np.nonzero(digests[:, 0] < np.uint64(threshold))[0]
-        if len(ok):
-            nonce = int(nonces[ok[0]])
-            challenger.observe_element(nonce)
-            return nonce
-        base += batch
+    with span(TRANSCRIPT):
+        while True:
+            nonces = np.arange(base, base + batch, dtype=np.uint64)
+            inputs = np.zeros((batch, 2), dtype=np.uint64)
+            inputs[:, 0] = c
+            inputs[:, 1] = nonces
+            digests = gl.to_u64(
+                ps.hash_no_pad(gl.from_u64(inputs, device), fused_sponge=fused_sponge)
+            )
+            ok = np.nonzero(digests[:, 0] < np.uint64(threshold))[0]
+            if len(ok):
+                nonce = int(nonces[ok[0]])
+                challenger.observe_element(nonce)
+                return nonce
+            base += batch
 
 
 def check_pow(challenger: Challenger, nonce: int, pow_bits: int) -> None:

@@ -64,6 +64,7 @@ from .challenger import Challenger
 from .circuit import CircuitData
 from .fri import FriProof, fold_layers, grind_pow, query_rounds
 from .gates import GATE_TYPES
+from .spans import TRANSCRIPT, PhaseTimer, span
 from .witness import PartialWitness, WitnessFill
 
 P = gl.P_INT
@@ -443,41 +444,6 @@ def check_witness(circuit_data: CircuitData, pw: PartialWitness, device=None) ->
     return public_inputs
 
 
-class PhaseTimer:
-    """Seconds per prover phase, and per part of a phase, into a caller's
-    dict.  With a dict given, every boundary synchronizes the device so queued
-    work is charged to the interval that enqueued it; without one the timer
-    does nothing.  An interval is charged to its phase and, when a part is
-    open, to the part too, so the parts of a phase add up to the phase."""
-
-    def __init__(self, timings, device):
-        self.timings = timings
-        self.device = device
-        self._t = None
-        self._names = ()
-
-    def _stamp(self, *names) -> None:
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        for name in self._names:
-            self.timings[name] = self.timings.get(name, 0.0) + now - self._t
-        self._t = now
-        self._names = names
-
-    def phase(self, name, first_part=None) -> None:
-        """A new phase begins, with its first part if it has parts (and the
-        open phase, with its open part, ends)."""
-        self._stamp(*((name,) if first_part is None else (name, first_part)))
-
-    def sub(self, name) -> None:
-        """A new part of the open phase begins (and the open part ends)."""
-        if self.timings is not None:
-            self._stamp(self._names[0], name)
-
-
 def _commit_batch(matrices, rate_bits: int, cap_height: int, from_coeffs: bool = False,
                   fused_sponge: bool = False):
     """Columns [K, S, n] on the device (evaluations on the subgroup, or
@@ -550,7 +516,11 @@ def prove_batch(
     ``device``); returns K proofs bit-identical to K ``prove`` calls.
 
     ``fused_sponge`` and ``timings`` are those of ``prove``: the phases are
-    timed for the batch as a whole.
+    timed for the batch as a whole, on the device's timeline and with no
+    synchronize (``engine/spans.py::PhaseTimer``).  While a recorder is
+    active (``spans.recording()``) the phases, their parts, the host's
+    transcript stretches (``prover:transcript``) and its fetches
+    (``prover:fetch``) are recorded as spans.
 
     ``mesh`` (``parallel/mesh.py::Mesh``) shards the proof axis instead:
     ``_prove_batch_over_mesh``, which ``device`` does not apply to; it
@@ -567,12 +537,12 @@ def prove_batch(
     if len(pws) < 1:
         raise ValueError("prove_batch wants at least one witness")
     device = gl.resolve_device(device if device is not None else circuit_data.device)
-    timer = PhaseTimer(timings, device)
-    timer.phase("tables")  # per-circuit tables, digest-cached across proofs
-    kernels = get_circuit_kernels(circuit_data.prover, device)
-    timer.phase("witness")
-    filled = [_fill_one(circuit_data.prover, pw) for pw in pws]
-    return _prove_filled(circuit_data, kernels, filled, device, fused_sponge, timer)
+    with PhaseTimer(timings, device) as timer:
+        timer.phase("tables")  # per-circuit tables, digest-cached across proofs
+        kernels = get_circuit_kernels(circuit_data.prover, device)
+        timer.phase("witness")
+        filled = [_fill_one(circuit_data.prover, pw) for pw in pws]
+        return _prove_filled(circuit_data, kernels, filled, device, fused_sponge, timer)
 
 
 def _fill_one(pd, pw: PartialWitness) -> tuple:
@@ -619,8 +589,8 @@ def _prove_batch_over_mesh(circuit_data, pws, mesh, fused_sponge, timings) -> li
         for i in shards:
             lo = first + i * per_shard
             lanes = [filled[min(k, k_real - 1)] for k in range(lo, lo + per_shard)]
-            results[i] = _prove_filled(circuit_data, kernels, lanes, dev, fused_sponge,
-                                       PhaseTimer(None, dev))
+            with PhaseTimer(None, dev) as timer:
+                results[i] = _prove_filled(circuit_data, kernels, lanes, dev, fused_sponge, timer)
 
     with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
         futures = [pool.submit(run, dev, shards) for dev, shards in by_device.items()]
@@ -642,7 +612,10 @@ def _prove_batch_over_mesh(circuit_data, pws, mesh, fused_sponge, timings) -> li
 def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device,
                   fused_sponge: bool, timer: PhaseTimer) -> list:
     """The device phases and the transcripts of ``prove_batch`` for K filled
-    witnesses (``_fill_one``'s triples) on ``device``."""
+    witnesses (``_fill_one``'s triples) on ``device``.  Each stretch of host
+    work between device work -- challenger loops, the alpha powers, the
+    sums at zeta, query assembly -- is a ``prover:transcript`` span inside
+    its phase."""
     pd = circuit_data.prover
     common = pd.common
     cfg = common.config
@@ -664,12 +637,13 @@ def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device
     )
     challengers = [Challenger() for _ in range(K)]
     betas, gammas = [], []
-    for k, ch in enumerate(challengers):
-        ch.observe_hash(common.circuit_digest)
-        ch.observe_hash(pi_hashes[k])
-        ch.observe_cap(_cap_tuples(wires_trees[k]))
-        betas.append(ch.get_n_challenges(C))
-        gammas.append(ch.get_n_challenges(C))
+    with span(TRANSCRIPT):
+        for k, ch in enumerate(challengers):
+            ch.observe_hash(common.circuit_digest)
+            ch.observe_hash(pi_hashes[k])
+            ch.observe_cap(_cap_tuples(wires_trees[k]))
+            betas.append(ch.get_n_challenges(C))
+            gammas.append(ch.get_n_challenges(C))
 
     timer.phase("perm_columns")
     # ---- 3. permutation argument columns ----
@@ -684,9 +658,10 @@ def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device
         "permutation argument product != 1 (sigma inconsistent)"
     )
     alphas = []
-    for k, ch in enumerate(challengers):
-        ch.observe_cap(_cap_tuples(zs_pp_trees[k]))
-        alphas.append(ch.get_n_challenges(C))
+    with span(TRANSCRIPT):
+        for k, ch in enumerate(challengers):
+            ch.observe_cap(_cap_tuples(zs_pp_trees[k]))
+            alphas.append(ch.get_n_challenges(C))
 
     timer.phase("quotient", "quotient_perm")
     # ---- 4. quotient ----
@@ -711,9 +686,10 @@ def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device
         fused_sponge=fused_sponge,
     )
     zetas = []
-    for k, ch in enumerate(challengers):
-        ch.observe_cap(_cap_tuples(quotient_trees[k]))
-        zetas.append(ch.get_extension_challenge())
+    with span(TRANSCRIPT):
+        for k, ch in enumerate(challengers):
+            ch.observe_cap(_cap_tuples(quotient_trees[k]))
+            zetas.append(ch.get_extension_challenge())
 
     timer.phase("openings")
     # ---- 5. openings at zeta (and g*zeta for Z columns) ----
@@ -733,16 +709,16 @@ def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device
     del all_coeffs_dev
     sizes = (pd.cs_coeffs.shape[0], cfg.num_wires, zspp_coeffs_dev.shape[1])
     openings_all = []
-    for k, ch in enumerate(challengers):
-        openings = _openings_dict(opens_zeta[k], opens_gzeta_z[k], *sizes)
-        for name in ["constants_sigmas", "wires", "zs_pp", "quotient", "zs_next"]:
-            for o in openings[name]:
-                ch.observe_ext(o)
-        openings_all.append(openings)
+    with span(TRANSCRIPT):
+        for k, ch in enumerate(challengers):
+            openings = _openings_dict(opens_zeta[k], opens_gzeta_z[k], *sizes)
+            for name in ["constants_sigmas", "wires", "zs_pp", "quotient", "zs_next"]:
+                for o in openings[name]:
+                    ch.observe_ext(o)
+            openings_all.append(openings)
 
     timer.phase("fri", "fri_combine")
     # ---- 6. FRI ----
-    alpha_fris = [ch.get_extension_challenge() for ch in challengers]
     # combine batch-1 columns (everything opened at zeta); LDEs are already
     # device-resident from the commitments, constants ride on the circuit's
     # tables
@@ -752,31 +728,34 @@ def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device
     )
     m1 = batch1_lde_dev.shape[1]
     alpha_pows = []  # per proof: alpha^0 .. alpha^(m1 + C - 1)
-    for alpha_fri in alpha_fris:
-        pows, apow = [], (1, 0)
-        for _ in range(m1 + C):
-            pows.append(apow)
-            apow = ext_mul(apow, alpha_fri)
-        alpha_pows.append(pows)
+    with span(TRANSCRIPT):
+        for ch in challengers:
+            alpha_fri = ch.get_extension_challenge()
+            pows, apow = [], (1, 0)
+            for _ in range(m1 + C):
+                pows.append(apow)
+                apow = ext_mul(apow, alpha_fri)
+            alpha_pows.append(pows)
     pows_arr = _u64_tensor(alpha_pows, device)  # [K, m1 + C, 2]
 
     comb1 = _combine_columns(batch1_lde_dev, pows_arr[:, :m1])
     del batch1_lde_dev
     comb2 = _combine_columns(zspp_lde_dev[:, :C], pows_arr[:, m1:])
     comb1_at_zeta, comb2_at_gzeta = [], []
-    for k, openings in enumerate(openings_all):
-        flat_opens = (
-            openings["constants_sigmas"] + openings["wires"] + openings["zs_pp"]
-            + openings["quotient"]
-        )
-        acc1 = (0, 0)
-        for i, y in enumerate(flat_opens):
-            acc1 = ext_add(acc1, ext_mul(alpha_pows[k][i], y))
-        acc2 = (0, 0)
-        for j, y in enumerate(openings["zs_next"]):
-            acc2 = ext_add(acc2, ext_mul(alpha_pows[k][m1 + j], y))
-        comb1_at_zeta.append(acc1)
-        comb2_at_gzeta.append(acc2)
+    with span(TRANSCRIPT):
+        for k, openings in enumerate(openings_all):
+            flat_opens = (
+                openings["constants_sigmas"] + openings["wires"] + openings["zs_pp"]
+                + openings["quotient"]
+            )
+            acc1 = (0, 0)
+            for i, y in enumerate(flat_opens):
+                acc1 = ext_add(acc1, ext_mul(alpha_pows[k][i], y))
+            acc2 = (0, 0)
+            for j, y in enumerate(openings["zs_next"]):
+                acc2 = ext_add(acc2, ext_mul(alpha_pows[k][m1 + j], y))
+            comb1_at_zeta.append(acc1)
+            comb2_at_gzeta.append(acc2)
 
     timer.sub("fri_initial")
     # FRI initial quotient G(x) on the cached coset table
@@ -796,32 +775,32 @@ def _prove_filled(circuit_data: CircuitData, kernels: dict, filled: list, device
     ]
     timer.sub("fri_queries")
     proofs = []
-    for k, ch in enumerate(challengers):
-        indices, rounds = query_rounds(fri_trees[k], fri_cfg, ch, lde_n)
-        # initial-tree openings per query: each proof's device trees gather
-        # only the touched leaf rows of its LDE and path digests (one small
-        # fetch); the constants_sigmas tree of the built circuit is host numpy
-        named_trees = {
-            "constants_sigmas": (None, pd.cs_lde, pd.cs_tree),
-            "wires": (wire_lde_dev[k], None, wires_trees[k]),
-            "zs_pp": (zspp_lde_dev[k], None, zs_pp_trees[k]),
-            "quotient": (quot_lde_dev[k], None, quotient_trees[k]),
-        }
-        proofs.append(Proof(
-            wires_cap=_cap_tuples(wires_trees[k]),
-            zs_pp_cap=_cap_tuples(zs_pp_trees[k]),
-            quotient_cap=_cap_tuples(quotient_trees[k]),
-            openings=openings_all[k],
-            fri=FriProof(
-                caps=[_cap_tuples(t) for t in fri_trees[k]],
-                final_poly=final_polys[k],
-                pow_witness=pow_witnesses[k],
-                query_rounds=rounds,
-            ),
-            initial_openings=_extract_initial_openings(named_trees, indices),
-            public_inputs=[int(v) for v in public_inputs_all[k]],
-        ))
-    timer.phase("_end")
+    with span(TRANSCRIPT):
+        for k, ch in enumerate(challengers):
+            indices, rounds = query_rounds(fri_trees[k], fri_cfg, ch, lde_n)
+            # initial-tree openings per query: each proof's device trees gather
+            # only the touched leaf rows of its LDE and path digests (one small
+            # fetch); the constants_sigmas tree of the built circuit is host numpy
+            named_trees = {
+                "constants_sigmas": (None, pd.cs_lde, pd.cs_tree),
+                "wires": (wire_lde_dev[k], None, wires_trees[k]),
+                "zs_pp": (zspp_lde_dev[k], None, zs_pp_trees[k]),
+                "quotient": (quot_lde_dev[k], None, quotient_trees[k]),
+            }
+            proofs.append(Proof(
+                wires_cap=_cap_tuples(wires_trees[k]),
+                zs_pp_cap=_cap_tuples(zs_pp_trees[k]),
+                quotient_cap=_cap_tuples(quotient_trees[k]),
+                openings=openings_all[k],
+                fri=FriProof(
+                    caps=[_cap_tuples(t) for t in fri_trees[k]],
+                    final_poly=final_polys[k],
+                    pow_witness=pow_witnesses[k],
+                    query_rounds=rounds,
+                ),
+                initial_openings=_extract_initial_openings(named_trees, indices),
+                public_inputs=[int(v) for v in public_inputs_all[k]],
+            ))
     return proofs
 
 
@@ -842,5 +821,8 @@ def prove(
     ``fri``) and per part of the two largest device phases (``quotient_perm``,
     ``quotient_gates``, ``quotient_finish``, ``quotient_commit``;
     ``fri_combine``, ``fri_initial``, ``fri_fold``, ``fri_grind``,
-    ``fri_queries``), which add up to their phase."""
+    ``fri_queries``), which add up to their phase.  They are seconds on the
+    device's timeline, between CUDA events at the phases' boundaries that
+    are resolved once the batch has ended: nothing synchronizes the card, so
+    the host runs ahead as it does untimed (host seconds on the CPU)."""
     return prove_batch(circuit_data, [pw], device, fused_sponge, timings)[0]

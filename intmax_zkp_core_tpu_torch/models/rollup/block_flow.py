@@ -159,7 +159,7 @@ def prove_user_txs_and_signatures(
     constants = constants or RollupConstants.test_constants()
     config = config or CircuitConfig.standard_recursion_config()
     device = gl.resolve_device(device)
-    stage = PhaseTimer(timings, device)
+    stage = PhaseTimer(timings, device, prefix="block_flow")
     phases = {}
     if timings is not None:
         phases = {"prove_user_txs": {}, "prove_signatures": {}}
@@ -334,7 +334,7 @@ def prove_user_txs_and_signatures(
         zkdsa_circuit, signature_witnesses, prove, fused_sponge,
         phases.get("prove_signatures"), mesh,
     )
-    stage.phase("_end")  # closes the last stage
+    stage.close()
 
     return UserTxStages(
         user_tx_circuit=merge_and_purge_circuit,
@@ -397,14 +397,18 @@ def run_block_flow(
     (those of ``prove_user_txs_and_signatures`` when it runs, then
     ``build_block_circuit``, ``block_state``, and ``block_witness``,
     ``prove_block``, ``verify_block``, or ``check_block``) and, under
-    ``prove_block_phases``, the block prove's seconds per phase."""
+    ``prove_block_phases``, the block prove's seconds per phase.  Stages and
+    phases alike are seconds on the device's timeline, between CUDA events
+    at their boundaries, with no synchronize (``engine/spans.py::
+    PhaseTimer``; host seconds on the CPU); each stage is the span
+    ``block_flow:<stage>``, the parent of its batches' ``prover:`` spans."""
     constants = constants or RollupConstants.test_constants()
     config = config or CircuitConfig.standard_recursion_config()
     device = gl.resolve_device(device)
     if stages is None:
         stages = prove_user_txs_and_signatures(constants, config, device, timings=timings,
                                                prove=prove, cache_dir=cache_dir, mesh=mesh)
-    stage = PhaseTimer(timings, device)
+    stage = PhaseTimer(timings, device, prefix="block_flow")
     block_phases = None
     if timings is not None and prove:
         block_phases = timings.setdefault("prove_block_phases", {})
@@ -518,7 +522,7 @@ def run_block_flow(
         got_pis = block_circuit.data.check_witness(pw)
         assert got_pis == list(block_pis.get_entry_hash().elements), "entry hash mismatch"
         block_proof = block_pis
-    stage.phase("_end")  # closes the last stage
+    stage.close()
 
     # --- BlockInfo (the block1_info.json format) ---
     address_list = [

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..engine import spans
+
 P_INT = 0xFFFFFFFF00000001  # 2^64 - 2^32 + 1
 _TWO64 = 1 << 64
 _SIGN = -(1 << 63)  # top bit as an int64
@@ -77,8 +79,12 @@ def as_field(x, device=None) -> torch.Tensor:
 
 
 def to_u64(t: torch.Tensor) -> np.ndarray:
-    """int64 bit patterns -> numpy uint64 on the host."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint64)
+    """int64 bit patterns -> numpy uint64 on the host.  The prover's one
+    device -> host crossing: it waits for the work queued before it, and
+    while a recorder is active it is the span ``prover:fetch``, counted in
+    ``fetches`` and ``fetch_s`` (``engine/spans.py``)."""
+    with spans.fetch():
+        return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
 
 def _ult(a, b):
