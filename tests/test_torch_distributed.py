@@ -23,6 +23,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +41,10 @@ from torch_distributed_worker import CAP_HEIGHT, RATE_BITS, commit_coeffs  # noq
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-WORKER_TIMEOUT_S = 300
+# Both workers' wall time together, the old limit of each: about 7x the
+# 28-44 s this fixture's setup took in tier-1 runs (``--durations=0``) on
+# 6 workers of a shared 8-core host, slow hours included.
+WORKERS_TIMEOUT_S = 300
 
 
 def _free_port() -> int:
@@ -68,10 +72,16 @@ def workers(tmp_path_factory):
                          env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(2)
     ]
+    deadline = time.monotonic() + WORKERS_TIMEOUT_S  # one for both processes
     outs = []
     try:
-        for p in procs:  # each process its own timeout
-            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+        for p in procs:
+            outs.append(p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate()[0] for p in procs]
+        pytest.fail("distributed workers timed out\n" + "\n".join(outs))
     finally:
         for p in procs:
             if p.poll() is None:
